@@ -5,17 +5,27 @@ with the same sub-package and module names so the counterpart of every
 function is found at once. It imports ``torch``, ``numpy`` and the standard
 library only: never ``jax``, and nothing of the JAX package.
 
-Ported so far (the 3D-3D RANSAC frame-pair estimator):
+Ported so far (the 3D-3D RANSAC frame-pair estimator, and dense projective
+ICP with the dense odometry server):
 
-- ``core``    — SO(3)/SE(3) exponentials, composition, inverse, apply.
+- ``core``    — SO(3)/SE(3) exponentials and logarithms, composition,
+                inverse, apply, adjoint, quaternions; the pinhole camera.
 - ``solvers`` — 3D-3D absolute orientation (Kabsch/Umeyama/Horn).
 - ``ransac``  — PROSAC sampling and ``estimate_pose_3d3d`` (+ adaptive).
+- ``icp``     — ``make_icp_frame`` and ``icp_track`` (coarse-to-fine
+                point-to-plane ICP, nearest or bilinear association,
+                strides, re-association schedule, photometric rows).
+- ``models``  — ``DenseOdometry`` (frame-to-keyframe; ``process`` and the
+                pipelined ``process_stream``).
 - ``ops``     — the hand-written CUDA kernels (minimal-set moments, fused
-                quad-form MSAC ranking, exact MSAC scoring), each beside
-                its plain PyTorch version.
-- ``data``    — synthetic 3D-3D correspondence problems.
-- ``utils``   — configs and the converters that carry configuration,
-                inputs and results between the two packages.
+                quad-form MSAC ranking, exact MSAC scoring, the ICP normal
+                equations), each beside its plain PyTorch version.
+- ``data``    — depth-image geometry (vertex/normal maps, pyramids,
+                sampling), synthetic correspondence problems and
+                analytically raycast RGB-D sequences.
+- ``utils``   — configs, the metrics logger and the converters that carry
+                configuration, inputs, state and results between the two
+                packages.
 
 Design rules:
 

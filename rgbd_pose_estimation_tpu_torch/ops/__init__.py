@@ -1,3 +1,7 @@
+from rgbd_pose_estimation_tpu_torch.ops.icp_jtj import (
+    icp_jtj_jtr,
+    icp_jtj_jtr_reference,
+)
 from rgbd_pose_estimation_tpu_torch.ops.moments import (
     minimal_moments,
     minimal_moments_reference,
@@ -10,6 +14,8 @@ from rgbd_pose_estimation_tpu_torch.ops.ransac_score import (
 )
 
 __all__ = [
+    "icp_jtj_jtr",
+    "icp_jtj_jtr_reference",
     "minimal_moments",
     "minimal_moments_reference",
     "best_pose_3d3d",

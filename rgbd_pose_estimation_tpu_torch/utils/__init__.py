@@ -4,9 +4,11 @@ from rgbd_pose_estimation_tpu_torch.utils.config import (
     PoseGraphConfig,
     BAConfig,
     MeshConfig,
+    KeyframeConfig,
     PipelineConfig,
     load_yaml_config,
 )
+from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
 
 __all__ = [
     "RansacConfig",
@@ -14,6 +16,8 @@ __all__ = [
     "PoseGraphConfig",
     "BAConfig",
     "MeshConfig",
+    "KeyframeConfig",
     "PipelineConfig",
     "load_yaml_config",
+    "MetricsLogger",
 ]

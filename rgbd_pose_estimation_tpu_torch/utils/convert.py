@@ -1,8 +1,9 @@
 """What crosses between the JAX package and the port.
 
 This system has no learned weights. What is carried across is
-configuration, inputs and sampled state (minimal-set indices, uniforms),
-and results on the way back. Everything here takes its argument
+configuration, inputs, sampled state (minimal-set indices, uniforms) and
+tracking state (the camera, a frame's pyramid, a pose), and results on the
+way back. Everything here takes its argument
 duck-typed, so neither package has to be imported to convert the other's
 objects: the parity tests use these functions and nothing ad hoc.
 """
@@ -14,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
+from rgbd_pose_estimation_tpu_torch.icp.dense import IcpFrame
 from rgbd_pose_estimation_tpu_torch.utils import config as _config
 
 
@@ -72,6 +75,39 @@ def to_torch(tree, device):
         return type(tree)(to_torch(v, device) for v in tree)
     # np.array copies: the tensor must own writable memory.
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def to_numpy(tree):
+    """The way back: tensors, and tuples, lists, dicts and NamedTuples of
+    them → numpy arrays (on the host, element type kept). Everything else
+    passes through unchanged."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree
+
+
+def camera_from_reference(cam) -> CameraIntrinsics:
+    """The JAX package's ``CameraIntrinsics`` (or anything with its fields)
+    → the port's."""
+    return CameraIntrinsics(
+        **{f.name: getattr(cam, f.name) for f in dataclasses.fields(CameraIntrinsics)}
+    )
+
+
+def icp_frame_from_reference(frame, device) -> IcpFrame:
+    """An ``IcpFrame`` of the JAX package (per-level vertex, normal and photo
+    maps as arrays) → the port's ``IcpFrame`` of tensors on ``device``."""
+    return IcpFrame(
+        vertices=to_torch(tuple(frame.vertices), device),
+        normals=to_torch(tuple(frame.normals), device),
+        photo=to_torch(tuple(frame.photo), device),
+    )
 
 
 def result_to_numpy(result) -> dict:

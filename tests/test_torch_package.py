@@ -2,7 +2,9 @@
 the JAX package's, and its converters round-trip."""
 
 import dataclasses
+import json
 import pathlib
+import re
 import subprocess
 import sys
 import typing
@@ -27,7 +29,7 @@ import rgbd_pose_estimation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 16, names
+assert len(names) >= 24, names
 for banned in ("jax", "jaxlib", "rgbd_pose_estimation_tpu", "triton"):
     assert banned not in sys.modules, banned
 import torch
@@ -132,3 +134,99 @@ def test_no_compiler_means_raise_not_fallback():
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library()
     assert all(v == 0 for v in _build.launch_counts().values())
+
+
+def test_metrics_logger_equals_reference(tmp_path, monkeypatch):
+    """The port's own copy of utils/metrics.py writes and summarises what
+    the original does, given the same clock."""
+    from rgbd_pose_estimation_tpu.utils import metrics as jmetrics
+    from rgbd_pose_estimation_tpu_torch.utils import metrics as tmetrics
+
+    assert tmetrics.HYPOTHESES_DEFINITION == jmetrics.HYPOTHESES_DEFINITION
+    ticks = iter(range(100, 200))
+    outs = []
+    for mod in (jmetrics, tmetrics):
+        monkeypatch.setattr(mod.time, "time", lambda: 1234.5)
+        path = tmp_path / (mod.__name__ + ".jsonl")
+        log = mod.MetricsLogger(str(path))
+        assert log.summary() == {"num_records": 0, "num_frames": 0}
+        log.log(frame=0, ms=4.0, keyframe=True)
+        log.log(frame=1, ms=6.0, overlap=0.9, hypotheses=2048)
+        log.log(note="no frame here")
+        log.close()
+        log.close()  # closing twice is harmless
+        outs.append((path.read_text(), log.summary(), log.records))
+    assert outs[0] == outs[1]
+    assert [json.loads(x)["t"] for x in outs[1][0].splitlines()] == [1234.5] * 3
+    assert outs[1][1]["frames_per_s"] == 200.0 and outs[1][1]["num_frames"] == 2
+    assert tmetrics.MetricsLogger().path is None  # in memory only
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in (_REPO / "configs").glob("*.yaml")))
+def test_yaml_configs_load_equal(name):
+    """Every checked-in configuration (config 3, the dense-ICP odometry
+    server's, among them) loads to the same values in both packages."""
+    ref = jax_config.load_yaml_config(_REPO / "configs" / name)
+    own = torch_config.load_yaml_config(_REPO / "configs" / name)
+    assert own == config_from_reference(ref)
+    assert dataclasses.asdict(own) == dataclasses.asdict(ref)
+    if name.startswith("config3"):
+        assert own.icp.source_stride == (4, 4, 2) and own.icp.iters_per_level == (3, 4, 6)
+        assert own.icp.reassoc_every == 2 and own.icp.downscale == 1
+        assert own.keyframe.min_inlier_ratio == 0.65 and own.keyframe.max_interval == 20
+
+
+def test_every_signature_names_an_entry_point_of_a_source():
+    """Nothing compiles here, so this is a check of the text: each kernel in
+    ``_SIGNATURES`` is defined once as ``extern "C" int rgbd_<name>(`` in a
+    source under ops/csrc/, with as many parameters as the signature says."""
+    from rgbd_pose_estimation_tpu_torch.ops import _build
+
+    sources = {p.name: p.read_text() for p in _build._CSRC.glob("*.cu")}
+    assert "icp_jtj.cu" in sources and "icp_jtj_jtr" in _build._SIGNATURES
+    for name, argtypes in _build._SIGNATURES.items():
+        found = [
+            m for text in sources.values()
+            for m in re.finditer(r'extern "C" int rgbd_' + name + r"\(([^)]*)\)", text)
+        ]
+        assert len(found) == 1, name
+        assert len(found[0].group(1).split(",")) == len(argtypes), name
+    # The result is summed in a fixed order: no floating-point atomics.
+    assert "atomicAdd" not in sources["icp_jtj.cu"].split("#include", 1)[1]
+
+
+def test_the_track_reads_nothing_back():
+    """icp/dense.py has no call that would wait for the device: the one
+    read-back of a frame is in the odometry server's ``_resolve``."""
+    import inspect
+
+    from rgbd_pose_estimation_tpu_torch.icp import dense
+
+    code = inspect.getsource(dense)
+    for banned in (".item(", "float(", ".cpu(", ".numpy(", ".tolist(", "synchronize", "bool("):
+        assert banned not in code, banned
+    assert "torch.linalg.solve_ex" in code and "torch.linalg.solve(" not in code
+
+
+def test_icp_converters():
+    from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics as JCamera
+    from rgbd_pose_estimation_tpu.icp.dense import IcpFrame as JIcpFrame
+    from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
+    from rgbd_pose_estimation_tpu_torch.icp.dense import IcpFrame
+    from rgbd_pose_estimation_tpu_torch.utils.convert import (
+        camera_from_reference,
+        icp_frame_from_reference,
+        to_numpy,
+    )
+
+    cam = camera_from_reference(JCamera(500.0, 501.0, 320.5, 240.5, 640, 480, 0.001))
+    assert cam == CameraIntrinsics(500.0, 501.0, 320.5, 240.5, 640, 480, 0.001)
+    rng = np.random.default_rng(1)
+    levels = tuple(rng.normal(size=(h, w, 3)).astype(np.float32) for h, w in ((6, 8), (3, 4)))
+    frame = icp_frame_from_reference(JIcpFrame(vertices=levels, normals=levels[::-1]), "cpu")
+    assert isinstance(frame, IcpFrame) and frame.photo == ()
+    assert frame.vertices[1].dtype == torch.float32 and frame.vertices[1].shape == (3, 4, 3)
+    back = to_numpy(frame)
+    assert isinstance(back, IcpFrame)
+    np.testing.assert_array_equal(back.normals[0], levels[1])
+    assert to_numpy({"a": [torch.ones(2), 3, None]})["a"][1:] == [3, None]
