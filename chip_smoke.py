@@ -10,6 +10,11 @@ through the launch counters that each path went through its kernels:
 
 - the 3D-3D RANSAC frame-pair estimator at the bench size, K = 32768
   hypotheses x N = 2048 correspondences (phases ``estimate``, ``adaptive``);
+- the 2D-3D (P3P) RANSAC estimator at the config-2 size, K = 2048 minimal
+  samples (8192 root poses) x N = 1024 correspondences, on the bench's clean
+  row and on a 30%-contaminated problem, its adaptive wrapper, and the
+  point+normal estimator at K = 2048 pairs x N = 2048 (``estimate_2d3d``,
+  ``stages_2d3d``);
 - dense projective ICP at 640x480, three levels, at the dense and the
   config-3 settings (``icp_track``), and the dense odometry server
   ``DenseOdometry`` over a rendered sequence, synchronous and pipelined
@@ -40,7 +45,7 @@ sys.path.insert(0, str(_ROOT))
 import numpy as np
 
 from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
-from rgbd_pose_estimation_tpu_torch.core.lie import se3_exp
+from rgbd_pose_estimation_tpu_torch.core.lie import rt_to_matrix, se3_apply, se3_exp
 from rgbd_pose_estimation_tpu_torch.data.synthetic import (
     synthetic_correspondences,
     synthetic_depth_scene,
@@ -63,16 +68,26 @@ from rgbd_pose_estimation_tpu_torch.ops.moments import (
     minimal_moments_reference,
 )
 from rgbd_pose_estimation_tpu_torch.ransac.engine import (
+    _best_root_pose,
+    _estimate_2d3d_from_samples,
     _estimate_from_samples,
+    _minimal_rays,
+    _pack_root_poses,
+    estimate_pose_2d3d,
+    estimate_pose_2d3d_adaptive,
     estimate_pose_3d3d,
     estimate_pose_3d3d_adaptive,
+    estimate_pose_3d3d_normals,
     pad_correspondences_3d3d,
+    pad_points_obs_2d3d,
 )
 from rgbd_pose_estimation_tpu_torch.ransac.prosac import sample_minimal_sets
 from rgbd_pose_estimation_tpu_torch.solvers.absolute_orientation import (
     horn_from_moments,
     horn_quaternion,
 )
+from rgbd_pose_estimation_tpu_torch.solvers.p3p import p3p
+from rgbd_pose_estimation_tpu_torch.solvers.pnp import pnp_refine
 from rgbd_pose_estimation_tpu_torch.utils.config import (
     IcpConfig,
     KeyframeConfig,
@@ -87,6 +102,14 @@ DEV = "cuda"
 K, N, M, TAU = 32768, 2048, 3, 0.05
 CFG = RansacConfig(num_hypotheses=K, threshold=TAU, refit_rounds=2, solver="horn")
 POSE_TOL = 0.05  # max |pose - ground truth|, the bench's accuracy gate
+
+# The 2D-3D row of the bench (config 2): K2D minimal samples, so
+# 4 * K2D P3P root poses, against the first N2D rows of the bench problem
+# moved 4 units down the optical axis and projected exactly. Its settings
+# come from configs/config2_ransac_pnp_pair.yaml. K5 launches once an estimate.
+K2D, N2D = 2048, 1024
+K2D_LARGE = 32768  # samples of the large case that shows K5's rate
+NORMALS_TOL = 0.02  # the point+normal estimator's gate (the JAX package's test)
 
 # The dense-ICP rows of the bench: one 640x480 frame pair of the analytic
 # scene, three levels, at the dense setting and at config 3's. K4 launches a
@@ -373,6 +396,186 @@ def hypotheses(seed, k, n):
     return idx, pp, qq, T
 
 
+def config2():
+    """The RANSAC settings of config 2, through the port's loader."""
+    cfg = load_yaml_config(_ROOT / "configs" / "config2_ransac_pnp_pair.yaml").ransac
+    if (cfg.num_hypotheses, cfg.threshold) != (K2D, 0.01):
+        raise AssertionError(f"config 2 is not K={K2D}, threshold 0.01: {cfg}")
+    return cfg
+
+
+def bench_row_2d3d(n=N2D):
+    """The bench's 2D-3D problem: the bench's 3D points moved 4 units down
+    the optical axis, observed exactly (no noise, no outliers) from the
+    bench's pose; the first ``n`` of 2048 rows. Returns (points, obs, T_gt)."""
+    p, _, T_gt, _ = synthetic_correspondences(
+        generator(0), n=N, outlier_frac=0.4, noise=0.003
+    )
+    pts = p.clone()
+    pts[:, 2] += 4.0
+    Xc = se3_apply(T_gt, pts)
+    obs = Xc[:, :2] / Xc[:, 2:3]
+    return pts[:n].contiguous(), obs[:n].contiguous(), T_gt
+
+
+def root_poses(seed, k, pts, obs):
+    """What the 2D-3D estimator hands K5 for ``k`` minimal samples."""
+    idx = sample_minimal_sets(generator(seed), pts.shape[0], k, 3)
+    return _pack_root_poses(*p3p(*_minimal_rays(idx, pts, obs)))
+
+
+def check_score2d(P, pts, obs, tau):
+    """K5 against its plain version and against float64 of the same inputs.
+
+    Scores: |kernel − ref| ≤ 0.5·τ². A score is a sum of N terms ≤ τ², and
+    min(e, τ²) is continuous in e, so what separates the three is rounding
+    alone: kernel and plain version project differently (a reciprocal and a
+    product with fused multiply-adds in the kernel, a library product and a
+    division in the plain version), which moves a term e ≤ τ² by about
+    2·τ·|proj|·1e-7, i.e. N = 2048 of them by at most 0.4·τ² if every
+    rounding pointed the same way (measured: thousands of times less).
+    Counts: an error within rounding of τ² may change side, so a pose's count
+    may differ by 1, on at most 0.1% of the poses. The plain version is held
+    to float64 by the same bounds. NaN must sit where float64 has it, and a
+    second run must give the same bits. Returns the largest score errors in
+    units of τ² and the number of poses whose count differs."""
+    tau2 = tau * tau
+    m, c = rs.score_poses_2d3d(P, pts, obs, tau)
+    m2, c2 = rs.score_poses_2d3d(P, pts, obs, tau)
+    m_plain, c_plain = chunked(
+        lambda t: rs.score_poses_2d3d_reference(t, pts, obs, tau), P)
+    m64, c64 = chunked(
+        lambda t: rs.score_poses_2d3d_reference(t.double(), pts.double(), obs.double(), tau),
+        P, 2048)
+    torch.cuda.synchronize()
+    what = f"score_poses_2d3d K={P.shape[0]} N={pts.shape[0]}"
+    if not (torch.equal(m.view(torch.int32), m2.view(torch.int32)) and torch.equal(c, c2)):
+        raise AssertionError(f"{what}: two runs on the same input differ")
+    if bool(torch.isnan(c).any()):
+        raise AssertionError(f"{what}: a count is NaN")
+    out = {}
+    for name, (ma, ca), (mb, cb) in (
+        ("vs_plain", (m, c), (m_plain, c_plain)),
+        ("vs_f64", (m, c), (m64, c64)),
+        ("plain_vs_f64", (m_plain, c_plain), (m64, c64)),
+    ):
+        assert_close(ma, mb, 0.0, 0.5 * tau2, f"{what} msac {name}")
+        diff = (ca.double() - cb.double()).abs()
+        if float(diff.max()) > 1 or float((diff > 0).double().mean()) > 1e-3:
+            raise AssertionError(
+                f"{what} counts {name}: max diff {float(diff.max())}, "
+                f"{int((diff > 0).sum())} of {diff.numel()} poses differ")
+        out[f"max_err_{name}_tau2"] = max_abs_err(ma, mb) / tau2
+        out[f"counts_differ_{name}"] = int((diff > 0).sum())
+    out["max_abs_err"] = max_abs_err(m, m_plain)
+    return out
+
+
+def kernel_score2d():
+    """K5 at the main path's shape (8192 root poses x 1024 rows), at the
+    large shape, at ragged shapes with and without pad rows, from packed and
+    matrix input, with NaN poses and with every point behind the camera.
+    Returns (checks, the main-path record, its error, the large record)."""
+    tau = config2().threshold
+    pts, obs, _ = bench_row_2d3d()
+    P = root_poses(13, K2D, pts, obs)
+    P[3] = float("nan")  # a degenerate sample's outcome
+    P[11, 9] = float("nan")  # one NaN entry is enough
+    checks = [{"shape": f"K={4 * K2D} N={N2D}", **check_score2d(P, pts, obs, tau)}]
+    m, c = rs.score_poses_2d3d(P, pts, obs, tau)
+    if not bool(torch.isnan(m[[3, 11]]).all()) or float(c[3]) != 0.0:
+        raise AssertionError("score_poses_2d3d: a NaN pose does not score NaN with count 0")
+    if int(c.max()) < N2D - 2:
+        raise AssertionError("score_poses_2d3d: no root pose explains the exact observations")
+
+    # Matrix input is packed by the wrapper: the same bits as packed input.
+    T44 = rt_to_matrix(P[:64, :9].reshape(64, 3, 3), P[:64, 9:12])
+    m44, c44 = rs.score_poses_2d3d(T44, pts, obs, tau)
+    if not (torch.equal(m44.view(torch.int32), m[:64].view(torch.int32))
+            and torch.equal(c44, c[:64])):
+        raise AssertionError("score_poses_2d3d: (K, 4, 4) and packed input differ")
+    checks.append({"shape": "(64, 4, 4) input", "max_abs_err": 0.0})
+
+    # Ragged: K = 1000 poses, N = 200 rows; then 56 pad rows behind the
+    # camera, which must add exactly 56 tau^2 and no inlier; K = 1, N = 1.
+    # Contaminated observations spread the errors over both sides of tau^2.
+    rp, ro, _ = contaminated_2d3d(17, 200)
+    R = root_poses(14, 250, rp, ro)
+    checks.append({"shape": "K=1000 N=200", **check_score2d(R, rp, ro, tau)})
+    pp, po = pad_points_obs_2d3d(rp, ro, 256)
+    checks.append({"shape": "K=1000 N=256 (56 pad rows)", **check_score2d(R, pp, po, tau)})
+    (m0, c0), (m1, c1) = rs.score_poses_2d3d(R, rp, ro, tau), rs.score_poses_2d3d(R, pp, po, tau)
+    assert_close(m1, m0 + 56 * tau * tau, 1e-5, 0.0, "score_poses_2d3d pad rows")
+    if not torch.equal(c0, c1):
+        raise AssertionError("score_poses_2d3d: a pad row was counted as an inlier")
+    checks.append({"shape": "K=1 N=1", **check_score2d(R[:1], rp[:1], ro[:1], tau)})
+
+    # Every point behind the camera: tau^2 each, no inlier, whatever obs says.
+    eye = rs.pack_poses(torch.eye(4, device=DEV)[None]).repeat(300, 1)
+    back = torch.zeros((77, 3), device=DEV)
+    back[:40, 2] -= 1.0  # depth -1, and depth 0 for the rest
+    mb, cb = rs.score_poses_2d3d(eye, back, torch.zeros((77, 2), device=DEV), tau)
+    assert_close(mb, torch.full_like(mb, 77 * tau * tau), 1e-6, 0.0, "score_poses_2d3d behind")
+    if float(cb.max()) != 0.0:
+        raise AssertionError("score_poses_2d3d: a point behind the camera was counted")
+    checks.append({"shape": "K=300 N=77, all behind the camera", "max_abs_err": 0.0})
+
+    # The large case: 131072 poses x 2048 rows.
+    lp, lo, _ = bench_row_2d3d(N)
+    L = root_poses(15, K2D_LARGE, lp, lo)
+    L[5] = float("nan")
+    large_check = check_score2d(L, lp, lo, tau)
+    checks.append({"shape": f"K={4 * K2D_LARGE} N={N}", **large_check})
+
+    def record(poses, points, observations, inner):
+        k, n = poses.shape[0], points.shape[0]
+        alone = [{"name": "score_poses_2d3d", "device_ms": None}]
+        set_device_ms(alone, profile_device(
+            lambda: [rs.score_poses_2d3d(poses, points, observations, tau) for _ in range(20)]))
+        return {
+            "shape": f"K={k} poses N={n}",
+            "ms": time_ms(lambda: rs.score_poses_2d3d(poses, points, observations, tau),
+                          inner=inner),
+            "device_ms_alone": alone[0]["device_ms"],
+            "plain_ms": time_ms(
+                lambda: chunked(
+                    lambda t: rs.score_poses_2d3d_reference(t, points, observations, tau), poses),
+                reps=10, inner=1, warmup=1),
+            # No single PyTorch call computes it: a perspective division sits
+            # between the product and the reduction.
+            "library_ms": None,
+            # poses read once, both results written once; points and obs once
+            "bytes": 4 * (14 * k + 5 * n),
+            "op_seconds": 26 * k * n / PEAK_F32_FLOPS,
+        }
+
+    main = {
+        "name": "score_poses_2d3d",
+        "source": "rgbd_pose_estimation_tpu_torch/ops/csrc/score2d.cu",
+        "replaces": "rgbd_pose_estimation_tpu/ops/ransac_score.py:473",
+        **record(P, pts, obs, 5),
+    }
+    large = record(L, lp, lo, 1)
+    large["max_abs_err"] = large_check["max_abs_err"]
+    return checks, main, checks[0]["max_abs_err"], large
+
+
+def contaminated_2d3d(seed, n, outlier_frac=0.3):
+    """A 2D-3D problem with gross outliers (the JAX package's
+    TestRansac2D3D): a camera about 4 units from points in [-1.5, 1.5]^3,
+    exact observations, ``outlier_frac`` of them replaced by uniform draws in
+    [-1, 1]^2. Returns (points, obs, T_gt)."""
+    g = generator(seed)
+    T = se3_exp(torch.randn(6, generator=g, device=DEV) * 0.4)
+    T[2, 3] += 4.0
+    pts = torch.rand((n, 3), generator=g, device=DEV) * 3.0 - 1.5
+    Xc = se3_apply(T, pts)
+    obs = Xc[:, :2] / Xc[:, 2:3]
+    out = torch.rand(n, generator=g, device=DEV) < outlier_frac
+    junk = torch.rand((n, 2), generator=g, device=DEV) * 2.0 - 1.0
+    return pts, torch.where(out[:, None], junk, obs).contiguous(), T
+
+
 def phase_kernels():
     """Returns the per-kernel records of the main-path shapes."""
     checks = []
@@ -450,7 +653,10 @@ def phase_kernels():
     icp_checks, icp_record, err["icp_jtj_jtr"], icp_by_size = kernel_icp_jtj()
     checks += icp_checks
     records.append(icp_record)
-    for rec in records + icp_by_size:
+    s2d_checks, s2d_record, err["score_poses_2d3d"], s2d_large = kernel_score2d()
+    checks += s2d_checks
+    records.append(s2d_record)
+    for rec in records + icp_by_size + [s2d_large]:
         byte_ms = rec.pop("bytes") / PEAK_BYTES_S * 1e3
         op_ms = rec.pop("op_seconds") * 1e3
         rec["bound_ms"] = max(byte_ms, op_ms)
@@ -471,7 +677,7 @@ def phase_kernels():
     }
     emit("kernels", names=[r["name"] for r in records], checks=checks,
          main_path_shapes=records, score_poses_3d3d_all_K=exact_all,
-         icp_jtj_jtr_by_size=icp_by_size)
+         icp_jtj_jtr_by_size=icp_by_size, score_poses_2d3d_large=s2d_large)
     return records
 
 
@@ -531,6 +737,177 @@ def phase_estimate():
         launches_per_estimate={k: counts[k] / requests for k in ESTIMATE_KERNELS},
     )
     return counts, (p, q, T_gt)
+
+
+def normals_problem(seed, n, outlier_frac=0.7):
+    """Point+normal correspondences under one pose with gross outliers (the
+    JAX package's TestRansacNormals at size ``n``): outlier rows get a random
+    target point in [-2, 2]^3 and a random target normal."""
+    g = generator(seed)
+
+    def unit(shape):
+        v = torch.randn(shape, generator=g, device=DEV)
+        return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+    T = se3_exp(torch.randn(6, generator=g, device=DEV) * 0.5)
+    p = torch.randn((n, 3), generator=g, device=DEV)
+    n_p = unit((n, 3))
+    q = se3_apply(T, p)
+    n_q = n_p @ T[:3, :3].T
+    out = (torch.rand(n, generator=g, device=DEV) < outlier_frac)[:, None]
+    q = torch.where(out, torch.rand((n, 3), generator=g, device=DEV) * 4.0 - 2.0, q)
+    n_q = torch.where(out, unit((n, 3)), n_q)
+    return p, q.contiguous(), n_p, n_q.contiguous(), T
+
+
+def expect_launches(counts, expected, what):
+    """``counts`` must show exactly ``expected`` (name → launches) and no
+    launch of any other kernel."""
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: kernel launches {counts}, expected {want}")
+
+
+def phase_estimate_2d3d():
+    """Config 2's estimator at its full size, nothing cut: five
+    requests on the bench's clean row, one on a contaminated problem of the
+    same size, the adaptive wrapper, and the point+normal estimator. Returns
+    the launch counts of the five requests (the main path) and the clean row."""
+    cfg = config2()
+    pts, obs, T_gt = bench_row_2d3d()
+    # Warm-up request: builds the PROSAC windows (a host loop, cached) and
+    # loads every PyTorch kernel the path uses.
+    pose_error(estimate_pose_2d3d(generator(1), pts, obs, cfg, refine_iters=8), T_gt)
+    torch.cuda.synchronize()
+
+    requests = 5
+    times, errs = [], []
+    _build.reset_launch_counts()
+    for i in range(requests):
+        g = generator(200 + i)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = estimate_pose_2d3d(g, pts, obs, cfg, refine_iters=8)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+        errs.append(pose_error(res, T_gt))
+        if res.num_hypotheses != 4 * K2D or res.inlier_mask.shape != (N2D,):
+            raise AssertionError("estimate_pose_2d3d: wrong hypothesis count or mask shape")
+    counts = _build.launch_counts()
+    expect_launches(counts, {"score_poses_2d3d": requests}, "five 2D-3D estimates")
+    ms = statistics.median(times)
+
+    # The same estimator under PyTorch's synchronisation check: any call of
+    # its own that waits for the device raises.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res_nosync = estimate_pose_2d3d(generator(206), pts, obs, cfg, refine_iters=8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pose_error(res_nosync, T_gt)
+
+    # The bench row has neither outliers nor noise: 30% gross outliers.
+    cp, co, cT = contaminated_2d3d(23, N2D)
+    _build.reset_launch_counts()
+    res_c = estimate_pose_2d3d(generator(207), cp, co, cfg, refine_iters=8)
+    err_c = pose_error(res_c, cT)
+    expect_launches(_build.launch_counts(), {"score_poses_2d3d": 1}, "contaminated 2D-3D estimate")
+
+    # Adaptive: on the clean row the probe meets the bound and the full round
+    # never runs; num_hypotheses counts the probe's roots.
+    _build.reset_launch_counts()
+    res_a = estimate_pose_2d3d_adaptive(generator(208), pts, obs, cfg)
+    err_a = pose_error(res_a, T_gt)
+    probe = max(cfg.probe_hypotheses, 64)
+    if res_a.num_hypotheses != 4 * probe:
+        raise AssertionError(f"2D-3D adaptive scored {res_a.num_hypotheses}, expected {4 * probe}")
+    expect_launches(_build.launch_counts(), {"score_poses_2d3d": 1}, "adaptive 2D-3D estimate")
+
+    # Point+normal samples: gathers, the 2-point solver, then the 3D-3D
+    # estimator's ranking (K2), finalists (K3) and refit.
+    ncfg = RansacConfig(num_hypotheses=K2D, threshold=TAU, sample_size=2)
+    p, q, n_p, n_q, nT = normals_problem(29, N)
+    estimate_pose_3d3d_normals(generator(209), p, q, n_p, n_q, ncfg)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res_n = estimate_pose_3d3d_normals(generator(210), p, q, n_p, n_q, ncfg)
+    stop.record()
+    stop.synchronize()
+    err_n = pose_error(res_n, nT)
+    if err_n >= NORMALS_TOL:
+        raise AssertionError(f"point+normal estimate: pose error {err_n} >= {NORMALS_TOL}")
+    expect_launches(
+        _build.launch_counts(),
+        {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1},
+        "point+normal estimate",
+    )
+
+    emit(
+        "estimate_2d3d", K=K2D, poses_scored=4 * K2D, N=N2D, requests=requests,
+        threshold=cfg.threshold, prosac=cfg.prosac, refine_iters=8,
+        ms_per_estimate=ms, ms_samples=times,
+        ransac_hypotheses_per_s=4 * K2D / (ms * 1e-3),
+        pose_max_err=max(errs), num_inliers=float(res.num_inliers),
+        launches_per_estimate={k: v / requests for k, v in counts.items()},
+        no_sync_pose_max_err=pose_error(res_nosync, T_gt),
+        contaminated={"outlier_frac": 0.3, "pose_max_err": err_c,
+                      "num_inliers": float(res_c.num_inliers)},
+        adaptive={"num_hypotheses": res_a.num_hypotheses, "pose_max_err": err_a},
+        normals={"K": K2D, "N": N, "outlier_frac": 0.7, "pose_max_err": err_n,
+                 "num_inliers": float(res_n.num_inliers),
+                 "ms_per_estimate": start.elapsed_time(stop)},
+    )
+    return counts, (pts, obs, T_gt, ms)
+
+
+def phase_stages_2d3d(pts, obs, ms_per_estimate, records):
+    """Where a 2D-3D estimate's time goes: each layer alone and synchronous,
+    through the functions the engine calls, then one estimate under the
+    profiler for the device's side of it. K5's record gets its time on the
+    device inside that estimate."""
+    cfg = config2()
+    tau = cfg.threshold
+    g = generator(7)
+    idx = sample_minimal_sets(g, N2D, K2D, 3)
+
+    def gather():
+        return _minimal_rays(sample_minimal_sets(g, N2D, K2D, 3), pts, obs)
+
+    pm, rays = gather()
+    T_roots, valid = p3p(pm, rays)
+
+    def score():
+        return _best_root_pose(
+            _pack_root_poses(T_roots, valid), valid.reshape(-1), pts, obs, tau)[0]
+
+    T_best = score()
+    w = torch.ones(N2D, device=DEV)
+    stages = {
+        "sample_minimal_sets + gather + rays": gather,
+        "p3p (quartic + Horn on (2048, 4) root sets)": lambda: p3p(pm, rays),
+        "pack + score_poses_2d3d (K5) + argmin + winner": score,
+        "pnp_refine, 8 steps": lambda: pnp_refine(T_best, pts, obs, weights=w, iters=8),
+        "everything after the sampler": lambda: _estimate_2d3d_from_samples(idx, pts, obs, cfg, 8),
+    }
+    out = {name: time_ms(fn, reps=20, inner=1, warmup=2) for name, fn in stages.items()}
+
+    rows = profile_device(lambda: estimate_pose_2d3d(generator(8), pts, obs, cfg, refine_iters=8))
+    rec = next(r for r in records if r["name"] == "score_poses_2d3d")
+    rec["device_ms"] = None
+    set_device_ms([rec], rows)
+    prof = device_summary(rows)
+    if prof["device_busy_ms"] is not None:
+        prof["ms_per_estimate"] = ms_per_estimate
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / ms_per_estimate
+        prof["score_poses_2d3d_device_ms"] = rec["device_ms"]
+        if rec["device_ms"] is not None:
+            prof["score_poses_2d3d_share_of_estimate"] = rec["device_ms"] / ms_per_estimate
+    emit("stages_2d3d", K=K2D, N=N2D, synchronous_ms=out, profiled_estimate=prof)
 
 
 def track_once(cam, cfg, src, tgt, T_gt, launches):
@@ -701,6 +1078,7 @@ DEVICE_NAMES = {
     "score_poses_3d3d_quad_fused": ("quad_score_kernel",),
     "score_poses_3d3d": ("score3d_kernel",),
     "icp_jtj_jtr": ("icp_jtj_partial_kernel", "icp_jtj_finish_kernel"),
+    "score_poses_2d3d": ("score2d_kernel",),
 }
 
 
@@ -838,6 +1216,23 @@ def phase_reference():
     if diff > 2e-3 or agree < 0.99 or bool(on_card.valid) != bool(on_cpu.valid):
         raise AssertionError(f"card vs CPU: pose diff {diff}, inlier masks agree {agree}")
 
+    # The 2D-3D estimator on the card against itself on the CPU (K5's plain
+    # version), from the same samples, 30% outliers, N = 300 (padded to 384).
+    # 1e-3: exact-inlier samples tie to rounding, so the two may polish
+    # different winners towards the one optimum.
+    pts, obs, T2 = contaminated_2d3d(22, 300)
+    cfg2 = RansacConfig(num_hypotheses=512, threshold=0.01)
+    idx2 = sample_minimal_sets(g, 300, 512, 3)
+    card2 = _estimate_2d3d_from_samples(idx2, pts, obs, cfg2)
+    cpu2 = _estimate_2d3d_from_samples(idx2.cpu(), pts.cpu(), obs.cpu(), cfg2)
+    diff2 = float((card2.pose.cpu() - cpu2.pose).abs().max())
+    agree2 = float((card2.inlier_mask.cpu() == cpu2.inlier_mask).float().mean())
+    score2 = abs(float(card2.score) - float(cpu2.score)) / float(cpu2.score)
+    if diff2 > 1e-3 or agree2 < 0.99 or score2 > 1e-3 or not bool(card2.valid):
+        raise AssertionError(f"2D-3D card vs CPU: pose diff {diff2}, masks agree {agree2}, "
+                             f"score differs by {score2}")
+    err2 = pose_error(card2, T2)
+
     # A small track (80x60, two levels) on the card against the same track on
     # the CPU, which runs K4's plain version. 2e-4: the normal equations are
     # summed in another order, and a nearest-pixel association that flips at
@@ -854,6 +1249,8 @@ def phase_reference():
         raise AssertionError(f"icp_track card vs CPU: pose diff {track_diff}, error {track_err}")
     emit("reference", pose_max_diff=diff, inlier_mask_agreement=agree,
          pose_max_err=pose_error(on_card, T_gt),
+         estimate_2d3d_pose_max_diff=diff2, estimate_2d3d_inlier_mask_agreement=agree2,
+         estimate_2d3d_score_rel_diff=score2, estimate_2d3d_pose_max_err=err2,
          icp_track_pose_max_diff=track_diff, icp_track_pose_max_err=track_err,
          icp_track_stats=[stats_card.tolist(), stats_cpu.tolist()])
 
@@ -875,16 +1272,24 @@ def main():
 
     records = phase_kernels()
     counts, (p, q, T_gt) = phase_estimate()
+    counts_2d3d, (pts, obs, _, ms_2d3d) = phase_estimate_2d3d()
     track_ms = phase_icp_track()
     odometry_counts = phase_odometry()
     phase_stages(p, q, records, track_ms["config3"])
+    phase_stages_2d3d(pts, obs, ms_2d3d, records)
     phase_adaptive(p, q, T_gt)
     phase_reference()
 
-    # Launches on each kernel's own main path: the estimates for K1-K3, the
-    # synchronous odometry run for K4, each counted from zero.
+    # Launches on each kernel's own main path: the 3D-3D estimates for K1-K3,
+    # the synchronous odometry run for K4, the 2D-3D estimates for K5, each
+    # counted from zero.
     for rec in records:
-        path = counts if rec["name"] in ESTIMATE_KERNELS else odometry_counts
+        if rec["name"] in ESTIMATE_KERNELS:
+            path = counts
+        elif rec["name"] == "score_poses_2d3d":
+            path = counts_2d3d
+        else:
+            path = odometry_counts
         rec["launches"] = path[rec["name"]]
         if rec["launches"] < 1:
             raise AssertionError(f"{rec['name']} was not launched by the main path")

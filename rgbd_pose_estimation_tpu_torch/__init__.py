@@ -5,21 +5,28 @@ with the same sub-package and module names so the counterpart of every
 function is found at once. It imports ``torch``, ``numpy`` and the standard
 library only: never ``jax``, and nothing of the JAX package.
 
-Ported so far (the 3D-3D RANSAC frame-pair estimator, and dense projective
-ICP with the dense odometry server):
+Ported so far (the RANSAC frame-pair estimators — 3D-3D, 2D-3D through
+P3P, point+normal — and dense projective ICP with the dense odometry
+server):
 
 - ``core``    — SO(3)/SE(3) exponentials and logarithms, composition,
-                inverse, apply, adjoint, quaternions; the pinhole camera.
-- ``solvers`` — 3D-3D absolute orientation (Kabsch/Umeyama/Horn).
-- ``ransac``  — PROSAC sampling and ``estimate_pose_3d3d`` (+ adaptive).
+                inverse, apply, adjoint, quaternions; the pinhole camera;
+                masked closed-form cubic and quartic roots.
+- ``solvers`` — 3D-3D absolute orientation (Kabsch/Umeyama/Horn), P3P,
+                N-point PnP (DLT and Gauss-Newton refinement), the
+                point+normal minimal solvers.
+- ``ransac``  — PROSAC sampling, ``estimate_pose_3d3d`` and
+                ``estimate_pose_2d3d`` (+ adaptive), and
+                ``estimate_pose_3d3d_normals``.
 - ``icp``     — ``make_icp_frame`` and ``icp_track`` (coarse-to-fine
                 point-to-plane ICP, nearest or bilinear association,
                 strides, re-association schedule, photometric rows).
 - ``models``  — ``DenseOdometry`` (frame-to-keyframe; ``process`` and the
                 pipelined ``process_stream``).
 - ``ops``     — the hand-written CUDA kernels (minimal-set moments, fused
-                quad-form MSAC ranking, exact MSAC scoring, the ICP normal
-                equations), each beside its plain PyTorch version.
+                quad-form MSAC ranking, exact 3D-3D MSAC scoring, 2D-3D
+                reprojection MSAC scoring, the ICP normal equations), each
+                beside its plain PyTorch version.
 - ``data``    — depth-image geometry (vertex/normal maps, pyramids,
                 sampling), synthetic correspondence problems and
                 analytically raycast RGB-D sequences.

@@ -11,6 +11,8 @@ from rgbd_pose_estimation_tpu_torch.ops.ransac_score import (
     score_poses_3d3d,
     score_poses_3d3d_quad,
     score_poses_3d3d_reference,
+    score_poses_2d3d,
+    score_poses_2d3d_reference,
 )
 
 __all__ = [
@@ -22,4 +24,6 @@ __all__ = [
     "score_poses_3d3d",
     "score_poses_3d3d_quad",
     "score_poses_3d3d_reference",
+    "score_poses_2d3d",
+    "score_poses_2d3d_reference",
 ]

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "score_poses_3d3d_quad_fused": [_P, _P, _P, _I, _I, _F, _P],
     # poses, p, q, msac, count, K, N, tau2
     "score_poses_3d3d": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # poses, points, obs, msac, count, K, N, tau2
+    "score_poses_2d3d": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     # p, q, n, w, partials, out, M, blocks
     "icp_jtj_jtr": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }

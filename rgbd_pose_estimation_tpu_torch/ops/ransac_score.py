@@ -1,8 +1,7 @@
-"""RANSAC hypothesis scoring: K poses against N 3D-3D correspondences.
+"""RANSAC hypothesis scoring: K poses against N correspondences.
 
-Counterpart of the 3D-3D half of the JAX package's ``ops/ransac_score.py``
-(the 2D-3D scorer is not ported yet). Two scorers and the selector built
-on them:
+Counterpart of the JAX package's ``ops/ransac_score.py``. Three scorers and
+the selector built on the first two:
 
 - :func:`score_poses_3d3d` — exact f32 MSAC score and inlier count per pose
   (CUDA kernel ``csrc/score3d.cu``, replacing the Pallas kernel
@@ -12,7 +11,10 @@ on them:
   ``csrc/quad_score.cu``, replacing the Pallas kernel
   ``_quad_fused_kernel``);
 - :func:`best_pose_3d3d` — fast ranking of all K, exact re-score of a few
-  finalists, argmin.
+  finalists, argmin;
+- :func:`score_poses_2d3d` — MSAC score and inlier count per world→camera
+  pose against (3D point, normalized-2D observation) pairs (CUDA kernel
+  ``csrc/score2d.cu``, replacing the Pallas kernel ``_score2d_kernel``).
 
 In the JAX package the fast ranking of ``best_pose_3d3d`` is a plain matrix
 product whose clip-and-sum epilogue the XLA compiler fuses. PyTorch has no
@@ -22,8 +24,8 @@ exact kernel IS the finalist re-score.
 
 For CUDA tensors each scorer launches its kernel or raises; the plain
 versions beside them (:func:`score_poses_3d3d_reference`,
-:func:`score_poses_3d3d_quad`) run for CPU tensors only. Neither kernel
-needs K or N to be a multiple of anything.
+:func:`score_poses_3d3d_quad`, :func:`score_poses_2d3d_reference`) run for
+CPU tensors only. No kernel needs K or N to be a multiple of anything.
 
 Padding contract: callers may pad N by appending far-away sentinel
 correspondences (``ransac.engine.pad_correspondences_3d3d``) — those always
@@ -284,3 +286,61 @@ def best_pose_3d3d(
     if return_pose:
         return cand[j][0], exact[j][0], unpack_pose(finalists[j][0])
     return cand[j][0], exact[j][0]
+
+
+# --------------------------------------------------------------------------
+# 2D-3D scoring: residual = || proj(R X + t) - obs ||  (normalized plane)
+# --------------------------------------------------------------------------
+
+
+def score_poses_2d3d(T: torch.Tensor, points: torch.Tensor, obs: torch.Tensor, threshold: float):
+    """Score K world→camera poses against N (3D point, normalized-2D) pairs.
+
+    Args: T ``(K, 4, 4)`` — or packed ``(K, 12)`` rows (:func:`pack_poses`
+    layout); ``points`` ``(N, 3)``, ``obs`` ``(N, 2)``. Returns
+    ``(msac_score, inlier_count)``, both ``(K,)`` f32. A point behind the
+    camera (depth < 1e-6) is an outlier: it adds τ² to the score and nothing
+    to the count, which is what the pad rows of
+    ``ransac.engine.pad_points_obs_2d3d`` rely on. A NaN pose scores NaN.
+    """
+    poses = T if T.dim() == 2 else pack_poses(T)
+    if not poses.is_cuda:
+        return score_poses_2d3d_reference(poses, points, obs, threshold)
+    dev = poses.device
+    K, N = poses.shape[0], points.shape[0]
+    if min(K, N) < 1:
+        raise ValueError(f"score_poses_2d3d: empty problem K={K} N={N}")
+    _build.check_cuda_input("poses", poses, torch.float32, (K, 12), dev)
+    _build.check_cuda_input("points", points, torch.float32, (N, 3), dev)
+    _build.check_cuda_input("obs", obs, torch.float32, (N, 2), dev)
+    msac = torch.empty((K,), dtype=torch.float32, device=dev)
+    count = torch.empty((K,), dtype=torch.float32, device=dev)
+    _build.launch(
+        "score_poses_2d3d",
+        poses.data_ptr(), points.data_ptr(), obs.data_ptr(),
+        msac.data_ptr(), count.data_ptr(), K, N, float(threshold) ** 2,
+    )
+    return msac, count
+
+
+def score_poses_2d3d_reference(T, points, obs, threshold: float):
+    """Plain PyTorch version of :func:`score_poses_2d3d` (``(K, 4, 4)`` or
+    packed ``(K, 12)`` poses). Builds a ``(K, N, 3)`` tensor: chunk over K
+    when both are large."""
+    if T.dim() == 2:
+        R = T[:, :9].reshape(-1, 3, 3)
+        t = T[:, 9:12]
+    else:
+        R = T[:, :3, :3]
+        t = T[:, :3, 3]
+    Xc = torch.einsum("kij,nj->kni", R, points) + t[:, None, :]
+    z = Xc[..., 2]
+    behind = z < 1e-6
+    proj = Xc[..., :2] / torch.where(behind, 1.0, z)[..., None]
+    e = torch.sum((proj - obs[None]) ** 2, dim=-1)
+    tau2 = threshold * threshold
+    e = torch.where(behind, 4.0 * tau2, e)
+    # torch.clamp propagates NaN, as the kernel does.
+    msac = torch.sum(torch.clamp(e, max=tau2), dim=-1)
+    count = torch.sum((e < tau2).to(torch.float32), dim=-1)
+    return msac, count

@@ -6,6 +6,9 @@ from rgbd_pose_estimation_tpu_torch.ransac.engine import (
     RansacResult,
     estimate_pose_3d3d,
     estimate_pose_3d3d_adaptive,
+    estimate_pose_3d3d_normals,
+    estimate_pose_2d3d,
+    estimate_pose_2d3d_adaptive,
     required_hypotheses,
 )
 
@@ -15,5 +18,8 @@ __all__ = [
     "RansacResult",
     "estimate_pose_3d3d",
     "estimate_pose_3d3d_adaptive",
+    "estimate_pose_3d3d_normals",
+    "estimate_pose_2d3d",
+    "estimate_pose_2d3d_adaptive",
     "required_hypotheses",
 ]

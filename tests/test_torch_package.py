@@ -29,7 +29,9 @@ import rgbd_pose_estimation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 24, names
+assert len(names) >= 28, names
+for new in ("core.poly", "solvers.p3p", "solvers.pnp", "solvers.normals"):
+    assert pkg.__name__ + "." + new in names, new
 for banned in ("jax", "jaxlib", "rgbd_pose_estimation_tpu", "triton"):
     assert banned not in sys.modules, banned
 import torch
@@ -133,6 +135,12 @@ def test_no_compiler_means_raise_not_fallback():
         pytest.skip("this machine has nvcc; the no-compiler path cannot be shown")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library()
+    # Every kernel's launch goes through the library first, so each raises
+    # here before it touches a pointer, and none is counted as launched.
+    assert "score_poses_2d3d" in _build._SIGNATURES
+    for name in _build._SIGNATURES:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.launch(name)
     assert all(v == 0 for v in _build.launch_counts().values())
 
 
@@ -184,6 +192,7 @@ def test_every_signature_names_an_entry_point_of_a_source():
 
     sources = {p.name: p.read_text() for p in _build._CSRC.glob("*.cu")}
     assert "icp_jtj.cu" in sources and "icp_jtj_jtr" in _build._SIGNATURES
+    assert "score2d.cu" in sources and "score_poses_2d3d" in _build._SIGNATURES
     for name, argtypes in _build._SIGNATURES.items():
         found = [
             m for text in sources.values()
@@ -192,7 +201,12 @@ def test_every_signature_names_an_entry_point_of_a_source():
         assert len(found) == 1, name
         assert len(found[0].group(1).split(",")) == len(argtypes), name
     # The result is summed in a fixed order: no floating-point atomics.
-    assert "atomicAdd" not in sources["icp_jtj.cu"].split("#include", 1)[1]
+    for name in ("icp_jtj.cu", "score2d.cu"):
+        assert "atomicAdd" not in sources[name].split("#include", 1)[1]
+    # The 2D-3D scorer keeps NaN (no fminf) and divides in IEEE arithmetic.
+    code = sources["score2d.cu"].split("#include", 1)[1]
+    assert "fminf" not in code and "__fdividef" not in code
+    assert "use_fast_math" not in " ".join(_build._NVCC_FLAGS)
 
 
 def test_the_track_reads_nothing_back():
