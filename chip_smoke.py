@@ -18,7 +18,12 @@ through the launch counters that each path went through its kernels:
 - dense projective ICP at 640x480, three levels, at the dense and the
   config-3 settings (``icp_track``), and the dense odometry server
   ``DenseOdometry`` over a rendered sequence, synchronous and pipelined
-  (``odometry``).
+  (``odometry``);
+- the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
+  of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
+  T6 against their plain versions, then the msac timing table at K = 4096
+  and 32768 x N = 2048 and the measured ceilings, graph-chained
+  (``msac_opt``).
 
 Every phase prints one JSON line; any failed check raises, so the exit code
 is non-zero and the last line is missing.
@@ -1079,6 +1084,12 @@ DEVICE_NAMES = {
     "score_poses_3d3d": ("score3d_kernel",),
     "icp_jtj_jtr": ("icp_jtj_partial_kernel", "icp_jtj_finish_kernel"),
     "score_poses_2d3d": ("score2d_kernel",),
+    "variant_A": ("score3d_kernel",),
+    "variant_C": ("quad_score_kernel",),
+    "variant_M": ("quad_mma_kernel",),
+    "variant_E_ceiling": ("op_mix_kernel",),
+    "variant_D": ("score3d_kernel",),
+    "ceiling_vpu": ("fma_chain_kernel",),
 }
 
 
@@ -1255,6 +1266,246 @@ def phase_reference():
          icp_track_stats=[stats_card.tolist(), stats_cpu.tolist()])
 
 
+# ---------------------------------------------------------------------------
+# The measurement harness: tools/msac_opt.py and tools/roofline.py, T1-T6
+# ---------------------------------------------------------------------------
+
+_CSRC = "rgbd_pose_estimation_tpu_torch/ops/csrc/"
+# record name -> (launch name, source, TPU kernel it replaces)
+HARNESS = {
+    "variant_A": ("msac_variant_a", _CSRC + "msac_variants.cu", "tools/msac_opt.py:67"),
+    "variant_C": ("msac_variant_c", _CSRC + "quad_score.cu", "tools/msac_opt.py:136"),
+    "variant_M": ("msac_variant_m", _CSRC + "quad_mma.cu", "tools/msac_opt.py:199"),
+    "variant_E_ceiling": ("msac_op_mix_ceiling", _CSRC + "ceilings.cu", "tools/msac_opt.py:257"),
+    "variant_D": ("msac_variant_d", _CSRC + "msac_variants.cu", "tools/msac_opt.py:287"),
+    "ceiling_vpu": ("fma_chain_ceiling", _CSRC + "ceilings.cu", "tools/roofline.py:167"),
+}
+QUAD_GAMMA = 1e-5  # per-entry error of the 17-term quad form, over its terms' magnitude
+
+
+def check_direct_variant(m_out, c_out, m_ref, c_ref, what):
+    """T1 and T5 against the exact plain scorer, as K3: scores rtol 1e-5 (N
+    f32 terms in another order); counts equal except where a residual sits
+    within rounding of tau^2: at most 1 apart, on at most 0.1% of poses."""
+    err = max_abs_err(m_out, m_ref)  # raises unless NaN sits where the plain version has it
+    assert_close(m_out, m_ref, 1e-5, 0.0, f"{what} msac")
+    if c_out is not None:
+        diff = (c_out - c_ref).abs()
+        if float(diff.max()) > 1 or float((diff > 0).float().mean()) > 1e-3:
+            raise AssertionError(f"{what} counts: max diff {float(diff.max())}, "
+                                 f"{int((diff > 0).sum())} of {diff.numel()} poses differ")
+    return err
+
+
+def check_quad_variant(m, c, feat, pn, what, chunk=4096):
+    """T2, T3 (and their plain versions) against float64 of the same f32
+    features. The 17 terms of an entry, of order 10-50 (1e9 for a pad
+    sentinel), cancel down to residuals near tau^2, so rounding is absolute
+    at the terms' scale: with S the sum of an entry's absolute terms, an
+    entry may move by QUAD_GAMMA*S. So a pose's score may differ from float64
+    by QUAD_GAMMA*S summed over its entries below tau^2 + QUAD_GAMMA*S (plus
+    1e-5 of the score for the N-term sum), and its count by the number of
+    entries within QUAD_GAMMA*S of tau^2. NaN must sit where float64 has it,
+    with count 0. Returns the largest score error as a share of its bound and
+    the number of poses whose count differs from float64."""
+    tau2 = TAU * TAU
+    pn64 = pn.double()
+    apn = pn64.abs()
+    worst, differ = 0.0, 0
+    for i in range(0, feat.shape[0], chunk):
+        f = feat[i : i + chunk].double()
+        e, bound = f @ pn64, QUAD_GAMMA * (f.abs() @ apn)
+        nan = torch.isnan(e).any(dim=1)
+        mi, ci = m[i : i + chunk].double(), c[i : i + chunk].double()
+        if not torch.equal(torch.isnan(mi), nan) or bool((ci[nan] != 0).any()):
+            raise AssertionError(f"{what}: NaN does not sit where float64 has it")
+        m64 = torch.clamp(e, max=tau2).sum(1)
+        c64 = (e < tau2).double().sum(1)
+        mb = torch.where(e < tau2 + bound, bound, 0.0).sum(1) + 1e-5 * m64.abs()
+        cb = ((e - tau2).abs() <= bound).double().sum(1)
+        ok = ~nan
+        over_m = (mi - m64).abs()[ok] > mb[ok]
+        over_c = (ci - c64).abs()[ok] > cb[ok]
+        if bool(over_m.any()) or bool(over_c.any()):
+            raise AssertionError(f"{what}: {int(over_m.sum())} scores and {int(over_c.sum())} counts "
+                                 f"beyond their bounds (rows {i}..)")
+        worst = max(worst, float(((mi - m64).abs()[ok] / (mb[ok] + 1e-30)).max()))
+        differ += int(((ci - c64)[ok] != 0).sum())
+    return {"max_err_over_bound": worst, "counts_differ_vs_f64": differ}
+
+
+def msac_variant_checks(T, p, q, label):
+    """T1 at every poses-per-block, T5, T2 and T3 against their plain
+    versions (and T2, T3 with their plain versions against float64) on one
+    problem. Returns (check record, max |kernel - plain| by record name)."""
+    from rgbd_pose_estimation_tpu_torch.ops import msac_variants as mv
+
+    P = rs.pack_poses(T)
+    feat, pn = rs._quad_features(T, p, q)
+    m_ref, c_ref = chunked(lambda t: mv.variant_A_reference(t, p, q, TAU), P)
+    check, err = {"shape": label}, {}
+    for b in mv.POSES_PER_BLOCK:
+        m, c = mv.variant_A(P, p, q, TAU, poses_per_block=b)
+        again = mv.variant_A(P, p, q, TAU, poses_per_block=b)
+        torch.cuda.synchronize()
+        if not (torch.equal(m.view(torch.int32), again[0].view(torch.int32)) and torch.equal(c, again[1])):
+            raise AssertionError(f"variant_A poses/block={b}: two runs differ")
+        err[f"variant_A[{b}]"] = check_direct_variant(m, c, m_ref, c_ref, f"variant_A {label} b={b}")
+    for b in (1, 8, 16):
+        d = mv.variant_D(P, p, q, TAU, poses_per_block=b)
+        err[f"variant_D[{b}]"] = check_direct_variant(d, None, m_ref, None, f"variant_D {label} b={b}")
+    for name, kernel, plain in (("variant_C", mv.quad_C, mv.quad_C_reference),
+                                ("variant_M", mv.quad_M, mv.quad_M_reference)):
+        m, c = kernel(feat, pn, TAU)
+        mp, cp = chunked(lambda f: plain(f, pn, TAU), feat)
+        torch.cuda.synchronize()
+        check[name] = check_quad_variant(m, c, feat, pn, f"{name} {label}")
+        check[name + " (plain)"] = check_quad_variant(mp, cp, feat, pn, f"{name} plain {label}")
+        # poses whose count differs from the f32 plain version's (each such
+        # pose is within its float64 bound, checked above)
+        check[name]["counts_differ_vs_plain"] = int((c != cp).sum())
+        err[name] = max_abs_err(m, mp)
+    check["max_abs_err_vs_plain"] = err
+    return check, err
+
+
+def probe_checks():
+    """T4 and T6 against their plain versions: the same bits."""
+    from rgbd_pose_estimation_tpu_torch.ops import ceilings
+
+    g = generator(51)
+    checks = []
+    for x, reps in ((torch.ones((8, 2048), device=DEV), 64),
+                    (-0.5 + 0.02 * torch.randn((8, 2048), generator=g, device=DEV), 64),
+                    (-0.5 + 0.02 * torch.randn((5, 1000), generator=g, device=DEV), 3)):
+        out, ref = ceilings.msac_op_mix(x, reps), ceilings.msac_op_mix_reference(x, reps)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"msac_op_mix {tuple(x.shape)} reps={reps}: not the plain version's bits")
+        checks.append({"probe": "variant_E_ceiling", "shape": list(x.shape), "reps": reps,
+                       "counted": bool((ref >= 1.0).any()), "max_abs_err": 0.0})
+    for shape in ((32768, 128), (1000, 7)):
+        x = torch.ones(shape, device=DEV)
+        out, ref = ceilings.fma_chain(x), ceilings.fma_chain_reference(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and bool((out == 1.0).all())):
+            raise AssertionError(f"fma_chain {shape}: not exactly 1.0")
+        checks.append({"probe": "ceiling_vpu", "shape": list(shape), "max_abs_err": 0.0})
+    return checks
+
+
+def harness_records(T, p, q, err):
+    """The kernels-line records of T1-T6 at the harness's shapes: K = 32768
+    poses x N = 2048 (T1 and T5 at 8 poses a block), T4 at (8, 2048) x 64
+    iterations, T6 at (32768, 128). ``ms`` by CUDA events around the
+    wrapper (T2, T3 on prebuilt features, as K2's record), ``device_ms`` the
+    kernel alone under the profiler."""
+    from rgbd_pose_estimation_tpu_torch.ops import ceilings
+    from rgbd_pose_estimation_tpu_torch.ops import msac_variants as mv
+
+    k, n = T.shape[0], p.shape[0]
+    P = rs.pack_poses(T)
+    feat, pn = rs._quad_features(T, p, q)
+    x4 = torch.ones((8, 2048), device=DEV)
+    x6 = torch.ones((32768, 128), device=DEV)
+    f32, tf32 = PEAK_F32_FLOPS, 495e12
+    quad_bytes = 4 * (17 * k + 17 * n + 2 * k)
+    spec = {
+        # name: (call, plain, library, bytes, op seconds, shape)
+        "variant_A": (lambda: mv.variant_A(P, p, q, TAU),
+                      lambda: chunked(lambda t: mv.variant_A_reference(t, p, q, TAU), P),
+                      None, 4 * (14 * k + 6 * n), 23 * k * n / f32, f"K={k} N={n}, 8 poses a block"),
+        "variant_C": (lambda: mv.quad_C(feat, pn, TAU),
+                      lambda: chunked(lambda f: mv.quad_C_reference(f, pn, TAU), feat),
+                      lambda: mv.variant_X(T, p, q, TAU, precision="highest"),
+                      quad_bytes, (2 * 17 + 4) * k * n / f32, f"K={k} N={n}"),
+        # three TF32 passes at the tensor-core peak, the epilogue at the f32 peak
+        "variant_M": (lambda: mv.quad_M(feat, pn, TAU),
+                      lambda: chunked(lambda f: mv.quad_M_reference(f, pn, TAU), feat),
+                      lambda: mv.variant_X(T, p, q, TAU, precision="highest"),
+                      quad_bytes, 3 * 2 * 17 * k * n / tf32 + 4 * k * n / f32, f"K={k} N={n}"),
+        "variant_E_ceiling": (lambda: ceilings.msac_op_mix(x4, 64),
+                              lambda: ceilings.msac_op_mix_reference(x4, 64),
+                              None, 2 * 4 * x4.numel(), 23 * 64 * x4.numel() / f32, "(8, 2048), 64 iterations"),
+        "variant_D": (lambda: mv.variant_D(P, p, q, TAU),
+                      lambda: chunked(lambda t: mv.variant_D_reference(t, p, q, TAU), P),
+                      None, 4 * (13 * k + 6 * n), 20 * k * n / f32, f"K={k} N={n}, 8 poses a block"),
+        "ceiling_vpu": (lambda: ceilings.fma_chain(x6), lambda: ceilings.fma_chain_reference(x6),
+                        None, 2 * 4 * x6.numel(), 2 * 256 * x6.numel() / f32, "(32768, 128)"),
+    }
+    records = []
+    for name, (call, plain, library, nbytes, op_s, shape) in spec.items():
+        launch_name, source, replaces = HARNESS[name]
+        alone = [{"name": name, "device_ms": None}]
+        set_device_ms(alone, profile_device(lambda: [call() for _ in range(20)]))
+        byte_ms, op_ms = nbytes / PEAK_BYTES_S * 1e3, op_s * 1e3
+        records.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "shape": shape,
+            "ms": time_ms(call),
+            "device_ms": alone[0]["device_ms"],
+            "plain_ms": time_ms(plain, reps=5, inner=1, warmup=1),
+            "library_ms": None if library is None else time_ms(library, reps=10, inner=1),
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "max_abs_err": err.get(name, 0.0),
+        })
+    return records
+
+
+def phase_msac_opt():
+    """The measurement harness on the card. First its kernels against their
+    plain versions: T1 (every poses-per-block), T5, T2 and T3 at K = 32768
+    hypotheses x N = 2048 bench correspondences (a NaN pose among them), at
+    K = 1000 x N = 200 and with 56 pad-sentinel rows (N = 256); T4 and T6
+    exactly. Then the harness itself, through its own entry points, with the
+    counters set to 0 just before: the msac timing table at K = 4096 and
+    32768 x N = 2048 (tools/msac_opt.py) and the four measured ceilings plus
+    the T4 op-mix ceiling (tools/roofline.py). Each of T1-T6 must be
+    launched there (counted once per capture into the timing graphs).
+    Returns the T1-T6 records of the kernels line."""
+    from rgbd_pose_estimation_tpu_torch.tools import msac_opt, roofline
+
+    _, pp, qq, Tr = hypotheses(11, 1000, 200)
+    checks = [msac_variant_checks(Tr, pp[:200].contiguous(), qq[:200].contiguous(), "K=1000 N=200")[0],
+              msac_variant_checks(Tr, pp, qq, "K=1000 N=256 (56 pad sentinels)")[0]]
+    _, p, q, T = hypotheses(12, K, N)
+    main_check, err = msac_variant_checks(T, p, q, f"K={K} N={N}")
+    checks.append(main_check)
+    err = {"variant_A": err["variant_A[8]"], "variant_D": err["variant_D[8]"],
+           "variant_C": err["variant_C"], "variant_M": err["variant_M"]}
+    checks += probe_checks()
+    records = harness_records(T, p, q, err)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = {kk: msac_opt.time_table(kk) for kk in (4096, 32768)}
+    ceilings_measured = {
+        "hbm_gbps": roofline.ceiling_hbm(),
+        "fma_tflops": roofline.ceiling_vpu(),
+        "op_mix_tflops": msac_opt.variant_E_ceiling(),
+        "bf16_matmul_tflops": roofline.ceiling_mxu(dtype=torch.bfloat16),
+        "f32_matmul_tflops": roofline.ceiling_mxu(dtype=torch.float32),
+    }
+    seconds = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    for rec in records:
+        rec["launches"] = counts[HARNESS[rec["name"]][0]]
+        if rec["launches"] < 1:
+            raise AssertionError(f"{rec['name']} was not launched by the harness")
+    failed = [f"K={kk} {name}" for kk, rows in table.items() for name, s in rows.items() if s is None]
+    if failed:
+        raise AssertionError(f"msac timing rows failed: {failed}")
+    fma = ceilings_measured["fma_tflops"]
+    emit("msac_opt", checks=checks, harness_seconds=seconds, ceilings=ceilings_measured,
+         timing={str(kk): {name: {"us": s * 1e6, "tflops": 23 * kk * N / s / 1e12,
+                                  "share_of_fma_ceiling": 23 * kk * N / s / 1e12 / fma}
+                           for name, s in rows.items()}
+                 for kk, rows in table.items()},
+         launches={rec["name"]: rec["launches"] for rec in records},
+         parity_K4096=msac_opt.parity(*msac_opt.problem(4096)))
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -1293,6 +1544,8 @@ def main():
         rec["launches"] = path[rec["name"]]
         if rec["launches"] < 1:
             raise AssertionError(f"{rec['name']} was not launched by the main path")
+    # T1-T6: launches of the harness phase, counted from zero there.
+    records += phase_msac_opt()
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({

@@ -10,6 +10,8 @@ rebuilt when any source is newer than it.
 :func:`launch` is the only place a kernel is launched: it passes the current
 PyTorch stream, raises when the launch is refused, and counts the launch
 under the kernel's name, so a run can show which kernels it went through.
+A launch recorded into a CUDA graph is counted once, at capture; the graph's
+replays are not counted.
 There is no fallback: without ``nvcc`` or a card, :func:`launch` raises.
 """
 
@@ -44,6 +46,19 @@ _SIGNATURES = {
     "score_poses_2d3d": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     # p, q, n, w, partials, out, M, blocks
     "icp_jtj_jtr": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # The measurement harness's kernels (tools/msac_opt.py, tools/roofline.py).
+    # poses, p, q, msac, count, K, N, tau2, poses_per_block
+    "msac_variant_a": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    # feat, pn, msac, count, K, N, tau2
+    "msac_variant_c": [_P, _P, _P, _P, _I, _I, _F, _P],
+    # feat, pn, msac, count, K, N, tau2
+    "msac_variant_m": [_P, _P, _P, _P, _I, _I, _F, _P],
+    # poses, p, q, msac, K, N, tau2, poses_per_block
+    "msac_variant_d": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    # x, cs, out, R, N, reps, tau2
+    "msac_op_mix_ceiling": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # x, out, n, s, b
+    "fma_chain_ceiling": [_P, _P, _I, _F, _F, _P],
 }
 
 _lib = None

@@ -16,13 +16,18 @@
 // The clamp is written with comparisons so that a NaN residual (a NaN pose)
 // stays NaN and the caller can rank it last.
 //
+// The same kernel, with its three template flags turned the other way,
+// replaces `_kernel_C` of tools/msac_opt.py (`variant_C`, T2): f32 operands
+// not rounded, min(e, tau^2) instead of the clip, and the inlier count
+// sum_n [e < tau^2] beside the sum. One design serves both; K2's
+// instantiation is the code it was before the flags.
+//
 // Bound on this card: operations, 2*17*K*N for the product plus about
-// 3*K*N for the epilogue, against the bf16 tensor-core peak; the bytes,
-// 4*(17*K + 17*N + K), are negligible. This first version runs on the CUDA
-// cores, so its own ceiling is the f32 multiply-add rate, far below that
-// bound; moving the product onto the tensor cores (mma / wgmma on the bf16
-// operands it already prepares) is the next step and changes no result
-// beyond summation order.
+// 3*K*N for the epilogue, against the bf16 tensor-core peak (T2: the f32
+// peak, its operands' type); the bytes, 4*(17*K + 17*N + K), are
+// negligible. This kernel runs on the CUDA cores, so its own ceiling is the
+// f32 multiply-add rate; the tensor-core form of the f32 function is T3
+// (quad_mma.cu).
 //
 // Design: a block of 8 warps ranks a tile of 128 poses. Each thread keeps
 // 4 poses' feature rows in registers (68 values, already rounded) and the
@@ -46,14 +51,20 @@ constexpr int kPoseTile = 32 * kPosesPerThread;  // 128 poses a block
 constexpr int kColsPerWarp = 32;
 constexpr int kChunk = kWarps * kColsPerWarp;    // 256 correspondences
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// Rounds to bf16 when kRound, else passes the f32 value.
+template <bool kRound>
+__device__ __forceinline__ float operand(float x) {
+  return kRound ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
+// kRound: operands rounded to bf16; kClipLow: clip(e, 0, tau2), else
+// min(e, tau2); kCount: also write sum_n [e < tau2] to count.
+template <bool kRound, bool kClipLow, bool kCount>
 __global__ void __launch_bounds__(kThreads)
 quad_score_kernel(const float* __restrict__ feat,  // (K, 17)
                   const float* __restrict__ pn,    // (17, N)
                   float* __restrict__ out,         // (K,)
+                  float* __restrict__ count,       // (K,), kCount only
                   int K, int N, float tau2) {
   __shared__ __align__(16) float s_pn[kChunk * kFeatPad];
   __shared__ float s_feat[kPoseTile * kFeat];  // reused for the final sums
@@ -64,7 +75,7 @@ quad_score_kernel(const float* __restrict__ feat,  // (K, 17)
   // Stage the tile's feature rows (coalesced), rounded; rows past K are 0.
   for (int i = threadIdx.x; i < kPoseTile * kFeat; i += kThreads) {
     const size_t g = static_cast<size_t>(k0) * kFeat + i;
-    s_feat[i] = g < static_cast<size_t>(K) * kFeat ? round_bf16(feat[g]) : 0.f;
+    s_feat[i] = g < static_cast<size_t>(K) * kFeat ? operand<kRound>(feat[g]) : 0.f;
   }
   __syncthreads();
   // Thread (lane, j) owns pose k0 + j*32 + lane: stride 17 words between
@@ -76,9 +87,12 @@ quad_score_kernel(const float* __restrict__ feat,  // (K, 17)
     for (int c = 0; c < kFeat; ++c) f[j][c] = s_feat[(j * 32 + lane) * kFeat + c];
   }
 
-  float acc[kPosesPerThread];
+  float acc[kPosesPerThread], cnt[kPosesPerThread];
 #pragma unroll
-  for (int j = 0; j < kPosesPerThread; ++j) acc[j] = 0.f;
+  for (int j = 0; j < kPosesPerThread; ++j) {
+    acc[j] = 0.f;
+    cnt[j] = 0.f;
+  }
 
   for (int n0 = 0; n0 < N; n0 += kChunk) {
     __syncthreads();  // the previous chunk has been consumed
@@ -87,7 +101,7 @@ quad_score_kernel(const float* __restrict__ feat,  // (K, 17)
       const int c = i / kChunk, col = i % kChunk;
       const int n = n0 + col;
       s_pn[col * kFeatPad + c] =
-          n < N ? round_bf16(pn[static_cast<size_t>(c) * N + n]) : 0.f;
+          n < N ? operand<kRound>(pn[static_cast<size_t>(c) * N + n]) : 0.f;
     }
     __syncthreads();
 
@@ -110,25 +124,34 @@ quad_score_kernel(const float* __restrict__ feat,  // (K, 17)
         float e = 0.f;
 #pragma unroll
         for (int c = 0; c < kFeat; ++c) e = fmaf(f[j][c], v[c], e);
-        // clip(e, 0, tau2) that keeps NaN
-        acc[j] += e < 0.f ? 0.f : (e > tau2 ? tau2 : e);
+        // clip(e, 0, tau2), or min(e, tau2), that keeps NaN
+        const float hi = e > tau2 ? tau2 : e;
+        acc[j] += kClipLow ? (e < 0.f ? 0.f : hi) : hi;
+        if (kCount) cnt[j] += e < tau2 ? 1.f : 0.f;
       }
     }
   }
 
   // Sum the 8 warps' partial sums in warp order.
   __syncthreads();
-  float* s_part = s_feat;  // (kWarps, kPoseTile) fits in 128*17 floats
+  // (kWarps, kPoseTile) sums, then as many counts: 2*8*128 <= 128*17 floats.
+  float* s_part = s_feat;
+  float* s_cnt = s_feat + kWarps * kPoseTile;
 #pragma unroll
   for (int j = 0; j < kPosesPerThread; ++j) {
     s_part[warp * kPoseTile + j * 32 + lane] = acc[j];
+    if (kCount) s_cnt[warp * kPoseTile + j * 32 + lane] = cnt[j];
   }
   __syncthreads();
   if (threadIdx.x < kPoseTile && k0 + threadIdx.x < K) {
-    float s = 0.f;
+    float s = 0.f, c = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += s_part[w * kPoseTile + threadIdx.x];
+    for (int w = 0; w < kWarps; ++w) {
+      s += s_part[w * kPoseTile + threadIdx.x];
+      if (kCount) c += s_cnt[w * kPoseTile + threadIdx.x];
+    }
     out[k0 + threadIdx.x] = s;
+    if (kCount) count[k0 + threadIdx.x] = c;
   }
 }
 
@@ -140,6 +163,18 @@ extern "C" int rgbd_score_poses_3d3d_quad_fused(const float* feat,
                                                 int K, int N, float tau2,
                                                 cudaStream_t stream) {
   const int blocks = (K + kPoseTile - 1) / kPoseTile;
-  quad_score_kernel<<<blocks, kThreads, 0, stream>>>(feat, pn, out, K, N, tau2);
+  quad_score_kernel<true, true, false><<<blocks, kThreads, 0, stream>>>(
+      feat, pn, out, nullptr, K, N, tau2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T2: feat (K, 17) f32, pn (17, N) f32, msac and count (K,) f32; all
+// contiguous. sum_n min(feat_k . pn_n, tau^2) and sum_n [e < tau^2] in f32.
+extern "C" int rgbd_msac_variant_c(const float* feat, const float* pn,
+                                   float* msac, float* count, int K, int N,
+                                   float tau2, cudaStream_t stream) {
+  const int blocks = (K + kPoseTile - 1) / kPoseTile;
+  quad_score_kernel<false, false, true><<<blocks, kThreads, 0, stream>>>(
+      feat, pn, msac, count, K, N, tau2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,7 @@ rendered once by the JAX package and handed to both as numpy arrays.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import torch
 
 from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics as JCamera
 from rgbd_pose_estimation_tpu.core.lie import se3_exp as jse3_exp
-from rgbd_pose_estimation_tpu.data.synthetic import synthetic_depth_scene
+from rgbd_pose_estimation_tpu.data import synthetic as jsyn
 from rgbd_pose_estimation_tpu.icp import dense as jdense
 from rgbd_pose_estimation_tpu.utils.config import IcpConfig as JIcpConfig
 from rgbd_pose_estimation_tpu_torch.icp import dense as tdense
@@ -27,6 +28,11 @@ from rgbd_pose_estimation_tpu_torch.utils.convert import (
     to_numpy,
     to_torch,
 )
+
+# The JAX package's renderer and pyramid, jitted (the camera and the config
+# are compile-time constants): one compile instead of one per primitive.
+synthetic_depth_scene = jax.jit(jsyn.synthetic_depth_scene, static_argnums=0)
+make_icp_frame_j = jax.jit(jdense.make_icp_frame, static_argnums=(0, 2))
 
 JCAM = JCamera(80.0, 80.0, 39.5, 29.5, 80, 60)
 CAM = camera_from_reference(JCAM)
@@ -55,7 +61,7 @@ def reference_frames(scene):
     a, b, _ = scene
     cfg = CONFIGS["photometric"]
     return tuple(
-        jdense.make_icp_frame(JCAM, jnp.asarray(d), cfg, jnp.asarray(i)) for d, i in (a, b)
+        make_icp_frame_j(JCAM, jnp.asarray(d), cfg, jnp.asarray(i)) for d, i in (a, b)
     )
 
 
@@ -71,7 +77,7 @@ def test_make_icp_frame(scene, reference_frames):
     depth = depth.copy()
     depth[:5, :5] = [[0.05, 7.0, 0.1, 5.0, 0.0]] * 5  # outside [min_depth, max_depth] → invalid
     cfg = CONFIGS["photometric"]
-    ref = jdense.make_icp_frame(JCAM, jnp.asarray(depth), cfg, jnp.asarray(intensity))
+    ref = make_icp_frame_j(JCAM, jnp.asarray(depth), cfg, jnp.asarray(intensity))
     out = tdense.make_icp_frame(
         CAM, to_torch(depth, "cpu"), config_from_reference(cfg), to_torch(intensity, "cpu")
     )

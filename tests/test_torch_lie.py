@@ -4,6 +4,9 @@ Tolerance 1e-6 absolute throughout: both sides evaluate the same f32
 formulas on the CPU; only the order of a few additions inside the 3x3
 products and the libm behind sin/cos differ."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +19,15 @@ from rgbd_pose_estimation_tpu_torch.utils.convert import to_torch
 ATOL = 1e-6
 
 
+@functools.lru_cache(maxsize=None)
+def _jax(name):
+    """The JAX package's function, jitted: one compile per shape instead of
+    one per primitive and shape."""
+    return jax.jit(getattr(jlie, name))
+
+
 def _both(name, *arrays):
-    ref = getattr(jlie, name)(*[jnp.asarray(a) for a in arrays])
+    ref = _jax(name)(*[jnp.asarray(a) for a in arrays])
     out = getattr(tlie, name)(*to_torch(list(arrays), "cpu"))
     return ref, out
 
@@ -50,7 +60,7 @@ def test_small_angle_branch(name, width):
 
 
 def _poses(seed, shape):
-    return np.asarray(jlie.se3_exp(jnp.asarray(_twists(seed, shape + (6,)))))
+    return np.asarray(_jax("se3_exp")(jnp.asarray(_twists(seed, shape + (6,)))))
 
 
 def test_rt_to_matrix_broadcasts():
@@ -104,7 +114,7 @@ def _rand_twists(seed, n, scale):
 
 def test_hat_vee_roundtrip():
     w = _twists(10, (17, 3))
-    ref, out = _both("so3_vee", np.asarray(jlie.so3_hat(jnp.asarray(w))))
+    ref, out = _both("so3_vee", np.asarray(_jax("so3_hat")(jnp.asarray(w))))
     _close(out, ref)
     np.testing.assert_array_equal(tlie.so3_vee(tlie.so3_hat(to_torch(w, "cpu"))).numpy(), w)
 
@@ -114,7 +124,7 @@ def test_hat_vee_roundtrip():
 # angle of order 1.
 @pytest.mark.parametrize("scale", [0.9, 1.2])
 def test_so3_log(scale):
-    R = np.asarray(jlie.so3_exp(jnp.asarray(_rand_twists(11, 128, scale)[:, 3:])))
+    R = np.asarray(_jax("so3_exp")(jnp.asarray(_rand_twists(11, 128, scale)[:, 3:])))
     ref, out = _both("so3_log", R)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
     w = _rand_twists(11, 128, scale)[:, 3:]
@@ -123,7 +133,7 @@ def test_so3_log(scale):
 
 def test_so3_log_near_identity_and_pi():
     w = np.array([[1e-6, -2e-6, 3e-7], [0.0, 0.0, 0.0], [5e-5, 0.0, 0.0]], np.float32)
-    R = np.asarray(jlie.so3_exp(jnp.asarray(w)))
+    R = np.asarray(_jax("so3_exp")(jnp.asarray(w)))
     ref, out = _both("so3_log", R)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
     np.testing.assert_allclose(out.numpy(), w, atol=1e-6)
@@ -131,7 +141,7 @@ def test_so3_log_near_identity_and_pi():
     # if the twist flips sign, in both packages.
     axes = np.array([[0.6, 0.8, 0.0], [0.0, -0.6, 0.8], [0.8, 0.0, 0.6], [1.0, 0.0, 0.0]], np.float32)
     for gap in (1e-4, 5e-4, 2e-3, 1e-2):
-        R = np.asarray(jlie.so3_exp(jnp.asarray(axes * np.float32(np.pi - gap))))
+        R = np.asarray(_jax("so3_exp")(jnp.asarray(axes * np.float32(np.pi - gap))))
         ref, out = _both("so3_log", R)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
         assert np.isfinite(out.numpy()).all()
@@ -144,17 +154,17 @@ def test_so3_log_loses_the_axis_just_outside_the_near_pi_branch():
     pi the generic branch divides by sin(theta) ~ 1e-3 and exp(log(R)) misses
     R by up to 2e-2, in both packages alike."""
     axes = np.array([[0.6, 0.8, 0.0], [0.0, -0.6, 0.8]], np.float32)
-    R = np.asarray(jlie.so3_exp(jnp.asarray(axes * np.float32(np.pi - 2e-3))))
+    R = np.asarray(_jax("so3_exp")(jnp.asarray(axes * np.float32(np.pi - 2e-3))))
     ref, out = _both("so3_log", R)
     miss = np.abs(tlie.so3_exp(out).numpy() - R).max()
-    miss_ref = np.abs(np.asarray(jlie.so3_exp(ref)) - R).max()
+    miss_ref = np.abs(np.asarray(_jax("so3_exp")(ref)) - R).max()
     assert 1e-3 < miss < 5e-2 and 1e-3 < miss_ref < 5e-2
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
 def test_se3_log_and_roundtrip():
     xi = _rand_twists(12, 128, 0.8)
-    T = np.asarray(jlie.se3_exp(jnp.asarray(xi)))
+    T = np.asarray(_jax("se3_exp")(jnp.asarray(xi)))
     ref, out = _both("se3_log", T)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
     np.testing.assert_allclose(out.numpy(), xi, atol=2e-4)
@@ -188,7 +198,7 @@ def test_rotmat_to_quat_covers_all_pivots():
     ws = np.array(
         [[0.0, 0.0, 0.0], [np.pi - 0.01, 0.0, 0.0], [0.0, np.pi - 0.01, 0.0],
          [0.0, 0.0, np.pi - 0.01], [1.0, -1.2, 0.7]], np.float32)
-    R = np.concatenate([np.asarray(jlie.so3_exp(jnp.asarray(ws))), _poses(15, (20,))[:, :3, :3]])
+    R = np.concatenate([np.asarray(_jax("so3_exp")(jnp.asarray(ws))), _poses(15, (20,))[:, :3, :3]])
     ref, out = _both("rotmat_to_quat", R)
     _close(out, ref)
     assert (out[:, 0] >= 0).all()  # canonical sign

@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from rgbd_pose_estimation_tpu.core.lie import se3_exp as jax_se3_exp
+from rgbd_pose_estimation_tpu.core.lie import se3_exp as _jax_se3_exp
 from rgbd_pose_estimation_tpu.ransac import engine as jengine
 from rgbd_pose_estimation_tpu.ransac.prosac import sample_minimal_sets as jax_sample
-from rgbd_pose_estimation_tpu.solvers import normals as jnormals
+from rgbd_pose_estimation_tpu.solvers import normals as _jnormals
 from rgbd_pose_estimation_tpu.utils.config import RansacConfig as JaxRansacConfig
 from rgbd_pose_estimation_tpu_torch.ops import _build
 from rgbd_pose_estimation_tpu_torch.ransac import engine as tengine
@@ -20,6 +20,17 @@ from rgbd_pose_estimation_tpu_torch.utils.convert import (
     result_to_numpy,
     to_torch,
 )
+
+# The JAX package's functions, jitted: one compile per shape instead of one
+# per primitive and shape.
+jax_se3_exp = jax.jit(_jax_se3_exp)
+
+
+class jnormals:  # noqa: N801 - stands for the module
+    ao_2pt_normals = staticmethod(jax.jit(_jnormals.ao_2pt_normals))
+    procrustes_rotation = staticmethod(jax.jit(_jnormals.procrustes_rotation))
+    ao_1pt_normal_fan = staticmethod(jax.jit(_jnormals.ao_1pt_normal_fan, static_argnames="num_yaw"))
+
 
 
 def _unit(v):

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics as JCamera
-from rgbd_pose_estimation_tpu.data.synthetic import synthetic_sequence
+from rgbd_pose_estimation_tpu.data import synthetic as jsyn
 from rgbd_pose_estimation_tpu.models.odometry import DenseOdometry as JDenseOdometry
 from rgbd_pose_estimation_tpu.utils.config import IcpConfig as JIcpConfig
 from rgbd_pose_estimation_tpu.utils.config import KeyframeConfig as JKeyframeConfig
@@ -26,6 +26,10 @@ from rgbd_pose_estimation_tpu_torch.utils.convert import (
     config_from_reference,
 )
 from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
+
+# The JAX package's sequence renderer, jitted (camera and frame count are
+# compile-time constants): one compile instead of one per primitive.
+synthetic_sequence = jax.jit(jsyn.synthetic_sequence, static_argnums=(0, 2))
 
 JCAM = JCamera(80.0, 80.0, 39.5, 29.5, 80, 60)
 CAM = camera_from_reference(JCAM)

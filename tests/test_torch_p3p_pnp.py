@@ -1,18 +1,28 @@
 """solvers/p3p.py and solvers/pnp.py of the PyTorch port against the JAX
 package's, from the same numpy-made problems."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from rgbd_pose_estimation_tpu.core.lie import se3_exp as jax_se3_exp
-from rgbd_pose_estimation_tpu.solvers import pnp as jpnp
+from rgbd_pose_estimation_tpu.core.lie import se3_exp as _jax_se3_exp
+from rgbd_pose_estimation_tpu.solvers import pnp as _jpnp
 from rgbd_pose_estimation_tpu.solvers.p3p import p3p as jax_p3p
 from rgbd_pose_estimation_tpu.solvers.p3p import p3p_best as jax_p3p_best
 from rgbd_pose_estimation_tpu_torch.solvers import pnp as tpnp
 from rgbd_pose_estimation_tpu_torch.solvers.p3p import p3p, p3p_best
 from rgbd_pose_estimation_tpu_torch.utils.convert import to_torch
+
+# The JAX package's functions, jitted: one compile per shape instead of one
+# per primitive and shape.
+jax_se3_exp = jax.jit(_jax_se3_exp)
+
+
+class jpnp:  # noqa: N801 - stands for the module
+    pnp_dlt = staticmethod(jax.jit(_jpnp.pnp_dlt))
+    pnp_refine = staticmethod(jax.jit(_jpnp.pnp_refine, static_argnames="iters"))
 
 
 def _poses(rng, b, scale):

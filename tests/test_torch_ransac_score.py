@@ -4,18 +4,24 @@ tensors the port's wrappers run their plain versions, which is what these
 tests reach; the CUDA kernels are held against those plain versions on the
 card by chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from rgbd_pose_estimation_tpu.core.lie import se3_exp as jax_se3_exp
+from rgbd_pose_estimation_tpu.core.lie import se3_exp as _jax_se3_exp
 from rgbd_pose_estimation_tpu.ops import ransac_score as jscore
 from rgbd_pose_estimation_tpu.ransac.engine import pad_correspondences_3d3d as jax_pad
-from rgbd_pose_estimation_tpu.solvers.absolute_orientation import kabsch as jax_kabsch
+from rgbd_pose_estimation_tpu.solvers.absolute_orientation import kabsch as _jax_kabsch
 from rgbd_pose_estimation_tpu_torch.ops import ransac_score as tscore
 from rgbd_pose_estimation_tpu_torch.ransac.engine import pad_correspondences_3d3d
 from rgbd_pose_estimation_tpu_torch.utils.convert import to_torch
+
+# The JAX package's functions, jitted: one compile per shape instead of one
+# per primitive and shape.
+jax_se3_exp = jax.jit(_jax_se3_exp)
+jax_kabsch = jax.jit(_jax_kabsch)
 
 
 def _poses(seed, k, scale=0.4):
