@@ -16,9 +16,10 @@ through the launch counters that each path went through its kernels:
   point+normal estimator at K = 2048 pairs x N = 2048 (``estimate_2d3d``,
   ``stages_2d3d``);
 - dense projective ICP at 640x480, three levels, at the dense and the
-  config-3 settings (``icp_track``), and the dense odometry server
-  ``DenseOdometry`` over a rendered sequence, synchronous and pipelined
-  (``odometry``);
+  config-3 settings, one launch of the fused step kernel a Gauss-Newton
+  step (``icp_track``), and the dense odometry server ``DenseOdometry`` over a rendered sequence, synchronous and
+  pipelined (``odometry``); the photometric and bilinear steps, which still
+  accumulate through K4, at 160x120;
 - the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
   of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
   T6 against their plain versions, then the msac timing table at K = 4096
@@ -63,8 +64,12 @@ from rgbd_pose_estimation_tpu_torch.icp.dense import (
 )
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
 from rgbd_pose_estimation_tpu_torch.ops import _build
+from rgbd_pose_estimation_tpu_torch.ops import msac_variants as mv
 from rgbd_pose_estimation_tpu_torch.ops import ransac_score as rs
 from rgbd_pose_estimation_tpu_torch.ops.icp_jtj import (
+    icp_assoc_jtj_jtr,
+    icp_assoc_jtj_jtr_reference,
+    icp_assoc_rows_reference,
     icp_jtj_jtr,
     icp_jtj_jtr_reference,
 )
@@ -117,15 +122,24 @@ K2D_LARGE = 32768  # samples of the large case that shows K5's rate
 NORMALS_TOL = 0.02  # the point+normal estimator's gate (the JAX package's test)
 
 # The dense-ICP rows of the bench: one 640x480 frame pair of the analytic
-# scene, three levels, at the dense setting and at config 3's. K4 launches a
-# track: one per Gauss-Newton iteration.
+# scene, three levels, at the dense setting and at config 3's. Each
+# Gauss-Newton step of a track is one launch of the fused step kernel
+# (icp_assoc_jtj_jtr); K4 (icp_jtj_jtr) is launched by the photometric and
+# bilinear steps only.
 CAM = CameraIntrinsics(525.0, 525.0, 319.5, 239.5, 640, 480)
 XI_GT = [0.01, -0.008, 0.005, 0.01, -0.012, 0.008]
 ICP_DENSE = IcpConfig(downscale=1, source_stride=(1, 1, 1), reassoc_every=1,
                       iters_per_level=(5, 7, 10))
 ICP_CONFIG3 = IcpConfig(downscale=1, source_stride=(4, 4, 2), reassoc_every=2,
                         iters_per_level=(3, 4, 6))
-K4_LAUNCHES = {"dense": 22, "config3": 13}
+STEPS_PER_TRACK = {"dense": 22, "config3": 13}
+# Device launches of one config-3 track when every step made its rows in
+# PyTorch and accumulated them with K4, counted under torch.profiler on an
+# H100 80GB HBM3 at 700 W: what the fused step's count is set beside.
+UNFUSED_LAUNCHES_PER_TRACK = {"config3": 2115}
+# Operations of the fused step a sample, counted from its source: warp 33,
+# projection 8, gates 36, Huber weight 3, row 14, the 36 weighted pair sums 80.
+ASSOC_OPS = 174
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_S = 3.35e12
@@ -212,20 +226,50 @@ def quad_scores_f64(feat, pn):
 
 
 def check_quad(T, p, q):
-    """K2 against float64, rtol 1e-3. The 17 terms of an entry are of order
-    |p|² ~ 10-50 and cancel to residuals near τ² = 2.5e-3, and the kernel
-    sums them in another order than any matrix product does: an f32 plain
-    version is no more right than the kernel, so both are held to the f64
-    value of the same rounded operands. Entries err by ~1e-6 absolute, up
-    to ~1e-3 of a small entry; the (K,) sums of N clipped entries much less."""
+    """K2 against float64, rtol 1e-3: the tensor-core kernel, its plain
+    version, and the CUDA-core design kept beside it. The 17 terms of an
+    entry are of order |p|² ~ 10-50 and cancel to residuals near τ² = 2.5e-3,
+    and the kernels sum them in another order than any matrix product does
+    (the tensor cores' f32 additions in an order of their own): an f32 plain
+    version is no more right than a kernel, so all are held to the f64 value
+    of the same rounded operands. Entries err by ~1e-6 absolute, up to ~1e-3
+    of a small entry; the (K,) sums of N clipped entries much less. A NaN
+    pose (the problem has one) must score NaN, and only it; a rerun must give
+    the same bits."""
     feat, pn = rs._quad_features(T, p, q)
     out = rs._quad_scores(feat, pn, TAU)
+    again = rs._quad_scores(feat, pn, TAU)
+    cuda_cores = mv.quad_fused_cuda_cores(feat, pn, TAU)
     ref = quad_scores_f64(feat, pn)
     plain = rs._quad_scores_reference(feat, pn, TAU)
     torch.cuda.synchronize()
+    nan_pose = torch.isnan(feat).any(dim=1)
+    if not bool(nan_pose.any()) or not torch.equal(torch.isnan(out), nan_pose):
+        raise AssertionError("score_poses_3d3d_quad_fused: NaN does not sit at the NaN pose alone")
+    if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("score_poses_3d3d_quad_fused: two runs on the same input differ")
     assert_close(out, ref, 1e-3, 0.0, "score_poses_3d3d_quad_fused vs f64")
+    assert_close(cuda_cores, ref, 1e-3, 0.0, "quad_fused_cuda_cores vs f64")
     assert_close(plain, ref, 1e-3, 0.0, "score_poses_3d3d_quad (plain) vs f64")
     return max_abs_err(out, ref)
+
+
+def check_quad_winner(T, p, q):
+    """The fast pass decides which finalists get the exact re-score: the
+    winner of best_pose_3d3d with the tensor-core K2 must be the CUDA-core
+    design's, or tie with it in exact score within 1e-5 relative."""
+    new_i, new_s = rs.best_pose_3d3d(T, p, q, TAU)
+    kept = rs._quad_scores
+    rs._quad_scores = mv.quad_fused_cuda_cores
+    try:
+        old_i, old_s = rs.best_pose_3d3d(T, p, q, TAU)
+    finally:
+        rs._quad_scores = kept
+    rel = abs(float(new_s) - float(old_s)) / abs(float(old_s))
+    if int(new_i) != int(old_i) and rel > 1e-5:
+        raise AssertionError(f"best_pose_3d3d: winner {int(new_i)} (score {float(new_s)}) against "
+                             f"the CUDA-core design's {int(old_i)} ({float(old_s)})")
+    return {"same_winner": int(new_i) == int(old_i), "exact_score_rel_diff": rel}
 
 
 def check_exact(T, p, q):
@@ -311,9 +355,10 @@ def check_icp_jtj(p, q, n, w):
 
 
 def kernel_icp_jtj():
-    """K4 at every size a 640x480 track gives it, on the rows of real
-    association steps (started from identity, so residuals are those of a
-    first iteration), then ragged sizes, zero weights and a NaN row.
+    """K4 at every size of the rows of a 640x480 track (the photometric
+    step's rows among them), on the rows of real association steps (started
+    from identity, so residuals are those of a first iteration), then ragged
+    sizes, zero weights and a NaN row.
     Returns (checks, the record of the main path's largest shape)."""
     checks, rows_by_name = [], {}
     eye = torch.eye(4, device=DEV)
@@ -381,12 +426,175 @@ def kernel_icp_jtj():
         "name": "icp_jtj_jtr",
         "source": "rgbd_pose_estimation_tpu_torch/ops/csrc/icp_jtj.cu",
         "replaces": "rgbd_pose_estimation_tpu/ops/icp_jtj.py:173",
-        "shape": "M=19200 (config 3, level 0)",
+        # the finest level of the bilinear 160x120 track has as many rows
+        "shape": "M=19200 (rows of config 3, level 0)",
         **timings(rows_by_name["config3 level 0"]),
     }
     del record["M"]
     err = next(c["max_abs_err_vs_plain"] for c in checks if c["rows"] == "config3 level 0")
     return checks, record, err, by_size
+
+
+def assoc_from_index(index, tgt_v, tgt_n):
+    """The plain version's association tuple for the fused kernel's map of
+    target pixels: the gathered [vertex, normal] rows, the in-bounds mask and
+    the pixel (read by the photometric rows only)."""
+    tw = tgt_v.shape[1]
+    pack = torch.cat([tgt_v.reshape(-1, 3), tgt_n.reshape(-1, 3)], dim=-1)
+    idx = index.clamp(min=0)
+    return pack[idx.long()], index >= 0, idx % tw, idx // tw
+
+
+def fused_level(cfg, src, tgt, level, stride=None):
+    """The fused step of one pyramid level (its kernel's wrapper) and what it
+    was built from: (maps, stride, intrinsics, thresholds)."""
+    cam = CAM.scaled(0.5**level)
+    stride = cfg.source_stride[level] if stride is None else stride
+    inputs = ((src.vertices[level], src.normals[level], tgt.vertices[level], tgt.normals[level]),
+              stride, (cam.fx, cam.fy, cam.cx, cam.cy),
+              (cfg.dist_threshold, cfg.normal_threshold, cfg.huber_delta))
+    maps, stride, intr, thr = inputs
+    return icp_assoc_jtj_jtr(*maps, stride, intr, thr), inputs
+
+
+def source_rows(inputs):
+    maps, stride, _, _ = inputs
+    return maps[0][::stride, ::stride].reshape(-1, 3), maps[1][::stride, ::stride].reshape(-1, 3)
+
+
+def check_icp_assoc(acc, inputs, T, what, carried_over=None):
+    """The fused step at pose ``T``, fresh, or carried over the association
+    map ``carried_over`` of an earlier fresh call. Its 8x8 is held to float64
+    of the rows that its OWN association gives (made in plain PyTorch), within
+    K4's bound (1e-4 of each entry's sum of absolute terms): the kernel
+    projects with fused multiply-adds where the plain version rounds each
+    operation, so a projection within rounding of a pixel boundary may land
+    next door. Its association map may differ from the plain version's on
+    at most 0.1% of the samples; where none differs (always on a carried
+    step, which reuses the map) the 8x8 is also held to the plain version
+    within twice the bound. A rerun must give the same bits and a carried
+    step must leave the map as it was. Returns (record, the map)."""
+    maps, stride, intr, thr = inputs
+    tw = maps[2].shape[1]
+    if carried_over is None:
+        out, index = flat8(acc(T)[:4]).clone(), acc.index.clone()
+        again, index_again = flat8(acc(T)[:4]).clone(), acc.index.clone()
+        *plain, (_, in_b, ui, vi) = icp_assoc_jtj_jtr_reference(T, *maps, stride, intr, thr)
+        index_plain = torch.where(in_b, vi * tw + ui, -1)
+    else:
+        index = carried_over
+        out = flat8(acc(T, acc.index)[:4]).clone()
+        again, index_again = flat8(acc(T, acc.index)[:4]).clone(), acc.index.clone()
+        *plain, _ = icp_assoc_jtj_jtr_reference(
+            T, *maps, stride, intr, thr, assoc_from_index(index, maps[2], maps[3]))
+        index_plain = index
+    plain = flat8(plain)
+    rows = icp_assoc_rows_reference(T, *source_rows(inputs), maps[2], maps[3], intr, thr,
+                                    assoc_from_index(index, maps[2], maps[3]))[0]
+    ref, scale = jtj_f64(*rows)
+    torch.cuda.synchronize()
+    M = index.numel()
+    if not (torch.equal(out.view(torch.int32), again.view(torch.int32))
+            and torch.equal(index, index_again)):
+        raise AssertionError(f"icp_assoc_jtj_jtr {what}: two runs differ")
+    differ = int((index != index_plain).sum())
+    if differ > 1e-3 * M:
+        raise AssertionError(f"icp_assoc_jtj_jtr {what}: {differ} of {M} associations differ")
+    bound = 1e-4 * scale + 1e-30
+    assert_within(out, ref, bound, f"icp_assoc_jtj_jtr vs f64, {what}")
+    if differ == 0:
+        assert_within(out, plain.double(), 2 * bound, f"icp_assoc_jtj_jtr vs plain, {what}")
+    ok = ~torch.isnan(ref)
+    return {
+        "rows": what, "M": M, "associations_differ": differ,
+        "weight_sum": float(out[-1]),
+        "max_abs_err_vs_plain": max_abs_err(out, plain),
+        "max_err_vs_f64_over_abs_sum": float(((out.double() - ref)[ok].abs() / (scale[ok] + 1e-30)).max()),
+    }, index
+
+
+def kernel_icp_assoc():
+    """The fused step kernel at every level of both bench rows, fresh from
+    the identity and carried to a pose a little off it, then strides that do
+    not divide the image and a single block, a NaN pose and a pose that sees
+    nothing. Returns (checks, the record of config 3's finest level, its
+    error, the records at the other main-path shapes)."""
+    eye = torch.eye(4, device=DEV)
+    T_off = se3_exp(torch.tensor([1e-3, -1e-3, 5e-4, 2e-3, -1e-3, 1e-3], device=DEV))
+    checks, levels = [], {}
+    for cfg, name in ((ICP_DENSE, "dense"), (ICP_CONFIG3, "config3")):
+        src, tgt, _ = icp_scene(cfg)
+        for level in range(3):
+            acc, inputs = fused_level(cfg, src, tgt, level)
+            levels[f"{name} level {level}"] = (acc, inputs)
+            rec, index = check_icp_assoc(acc, inputs, eye, f"{name} level {level}, fresh")
+            checks.append(rec)
+            checks.append(check_icp_assoc(acc, inputs, T_off, f"{name} level {level}, carried",
+                                          carried_over=index)[0])
+        if name == "config3":
+            for level, stride in ((0, 3), (2, 16)):  # 160 x 214 samples; 8 x 10, one block
+                acc, inputs = fused_level(cfg, src, tgt, level, stride)
+                checks.append(check_icp_assoc(acc, inputs, eye, f"level {level}, stride {stride}")[0])
+    sizes = sorted({c["M"] for c in checks})
+    if sizes != [80, 4800, 19200, 34240, 76800, 307200]:
+        raise AssertionError(f"unexpected fused-step sizes {sizes}")
+
+    acc, inputs = levels["config3 level 0"]
+    maps, stride, intr, thr = inputs
+    nan_pose = torch.full((4, 4), float("nan"), device=DEV)
+    out = flat8(acc(nan_pose)[:4]).clone()
+    plain = flat8(icp_assoc_jtj_jtr_reference(nan_pose, *maps, stride, intr, thr)[:4])
+    if not (bool(torch.isnan(out).any()) and torch.equal(torch.isnan(out), torch.isnan(plain))
+            and float(out[-1]) == 0.0):
+        raise AssertionError("icp_assoc_jtj_jtr: a NaN pose does not give the plain version's NaN sums")
+    checks.append({"rows": "config3 level 0, NaN pose", "nan_entries": int(torch.isnan(out).sum()),
+                   "weight_sum": 0.0})
+    T_far = torch.eye(4, device=DEV)
+    T_far[0, 3] = 5.0  # five metres to the side: no sample lands on the target
+    step = level_step(CAM, ICP_CONFIG3, *icp_scene(ICP_CONFIG3)[:2], 0)[0]
+    T_new, stats, _ = step(T_far)
+    if float(flat8(acc(T_far)[:4])[-1]) != 0.0 or float(stats[1]) != 0.0 or not torch.equal(T_new, T_far):
+        raise AssertionError("icp_assoc_jtj_jtr: a pose that sees nothing took a step")
+    checks.append({"rows": "config3 level 0, pose that sees nothing", "weight_sum": 0.0})
+
+    def record(key):
+        acc, inputs = levels[key]
+        maps, stride, intr, thr = inputs
+        sv, sn = source_rows(inputs)
+        src_valid = (sv[:, 2] > 0) & (torch.sum(sn * sn, dim=-1) > 0.5)
+        pack = torch.cat([maps[2].reshape(-1, 3), maps[3].reshape(-1, 3)], dim=-1)
+        acc(eye)
+        index = acc.index.clone()
+        M = index.numel()
+        gathered = int(torch.unique(index[index >= 0]).numel())
+        return {
+            "M": M,
+            "ms": time_ms(lambda: acc(eye)),
+            "device_ms": device_ms_alone("icp_assoc_jtj_jtr", lambda: acc(eye)),
+            "carried_ms": time_ms(lambda: acc(eye, acc.index)),
+            "plain_ms": time_ms(lambda: icp_assoc_jtj_jtr_reference(eye, *maps, stride, intr, thr)),
+            # The route the fused kernel replaced: the rows in PyTorch from
+            # the level's prepared inputs, then K4. Not one library call.
+            "unfused_ms": time_ms(lambda: icp_jtj_jtr(*icp_assoc_rows_reference(
+                eye, sv, sn, maps[2], maps[3], intr, thr, src_valid=src_valid, tgt_pack=pack)[0])),
+            "library_ms": None,
+            # the sample's vertex and normal, the distinct target pixels it
+            # gathers (both maps), the map written, T read, the 44 results
+            "bytes": 24 * M + 24 * gathered + 4 * M + 64 + 4 * 44,
+            "op_seconds": ASSOC_OPS * M / PEAK_F32_FLOPS,
+        }
+
+    by_size = [{"rows": key, **record(key)} for key in ("dense level 0", "dense level 2", "config3 level 1")]
+    main = {
+        "name": "icp_assoc_jtj_jtr",
+        "source": "rgbd_pose_estimation_tpu_torch/ops/csrc/icp_jtj.cu",
+        "replaces": "rgbd_pose_estimation_tpu/ops/icp_jtj.py:173",
+        "shape": "M=19200 (config 3, level 0), fresh",
+        **record("config3 level 0"),
+    }
+    del main["M"]
+    err = next(c["max_abs_err_vs_plain"] for c in checks if c["rows"] == "config3 level 0, carried")
+    return checks, main, err, by_size
 
 
 def hypotheses(seed, k, n):
@@ -612,7 +820,8 @@ def phase_kernels():
         "score_poses_3d3d": check_exact(T_top, p, q),
     }
     err_exact_all = check_exact(T, p, q)
-    checks.append({"shape": f"K={K} N={N}", **err, "score_poses_3d3d[all K]": err_exact_all})
+    checks.append({"shape": f"K={K} N={N}", **err, "score_poses_3d3d[all K]": err_exact_all,
+                   "best_pose_3d3d winner, tensor-core vs CUDA-core K2": check_quad_winner(T, p, q)})
 
     tau2 = TAU * TAU
     f32 = PEAK_F32_FLOPS
@@ -629,9 +838,15 @@ def phase_kernels():
         },
         {
             "name": "score_poses_3d3d_quad_fused",
-            "source": "rgbd_pose_estimation_tpu_torch/ops/csrc/quad_score.cu",
+            "source": "rgbd_pose_estimation_tpu_torch/ops/csrc/quad_bf16_mma.cu",
             "replaces": "rgbd_pose_estimation_tpu/ops/ransac_score.py:279",
             "ms": time_ms(lambda: rs._quad_scores(feat, pn, TAU)),
+            "device_ms_alone": device_ms_alone(
+                "score_poses_3d3d_quad_fused", lambda: rs._quad_scores(feat, pn, TAU)),
+            # K2's CUDA-core design, on the same operands in the same run.
+            "cuda_core_design_ms": time_ms(lambda: mv.quad_fused_cuda_cores(feat, pn, TAU)),
+            "cuda_core_design_device_ms_alone": device_ms_alone(
+                "quad_fused_cuda_cores", lambda: mv.quad_fused_cuda_cores(feat, pn, TAU)),
             "plain_ms": time_ms(lambda: rs._quad_scores_reference(feat, pn, TAU), inner=1),
             # One bf16 tensor-core product, then clamp and sum: what a user
             # of the library alone would write. The port never calls it.
@@ -658,10 +873,13 @@ def phase_kernels():
     icp_checks, icp_record, err["icp_jtj_jtr"], icp_by_size = kernel_icp_jtj()
     checks += icp_checks
     records.append(icp_record)
+    assoc_checks, assoc_record, err["icp_assoc_jtj_jtr"], assoc_by_size = kernel_icp_assoc()
+    checks += assoc_checks
+    records.append(assoc_record)
     s2d_checks, s2d_record, err["score_poses_2d3d"], s2d_large = kernel_score2d()
     checks += s2d_checks
     records.append(s2d_record)
-    for rec in records + icp_by_size + [s2d_large]:
+    for rec in records + icp_by_size + assoc_by_size + [s2d_large]:
         byte_ms = rec.pop("bytes") / PEAK_BYTES_S * 1e3
         op_ms = rec.pop("op_seconds") * 1e3
         rec["bound_ms"] = max(byte_ms, op_ms)
@@ -682,7 +900,8 @@ def phase_kernels():
     }
     emit("kernels", names=[r["name"] for r in records], checks=checks,
          main_path_shapes=records, score_poses_3d3d_all_K=exact_all,
-         icp_jtj_jtr_by_size=icp_by_size, score_poses_2d3d_large=s2d_large)
+         icp_jtj_jtr_by_size=icp_by_size, icp_assoc_jtj_jtr_by_size=assoc_by_size,
+         score_poses_2d3d_large=s2d_large)
     return records
 
 
@@ -917,14 +1136,15 @@ def phase_stages_2d3d(pts, obs, ms_per_estimate, records):
 
 def track_once(cam, cfg, src, tgt, T_gt, launches):
     """One track from identity: the bench's accuracy gate, the launch
-    counter, and the same bits from a second run. Returns the pose error."""
+    counters (``launches``: kernel name → launches expected, every other
+    kernel none), and the same bits from a second run. Returns the pose
+    error, the stats and the counts."""
     eye = torch.eye(4, device=DEV)
     _build.reset_launch_counts()
     T, stats = icp_track(cam, cfg, eye, src, tgt)
     torch.cuda.synchronize()
-    n = _build.launch_counts()["icp_jtj_jtr"]
-    if n != launches:
-        raise AssertionError(f"icp_track: {n} icp_jtj_jtr launches, expected {launches}")
+    counts = _build.launch_counts()
+    expect_launches(counts, launches, "icp_track")
     err = float((T @ T_gt - eye).abs().max())
     if not bool(torch.isfinite(T).all()) or not err < POSE_TOL:
         raise AssertionError(f"icp_track: pose error {err} >= {POSE_TOL}")
@@ -939,36 +1159,55 @@ def track_once(cam, cfg, src, tgt, T_gt, launches):
         torch.cuda.set_sync_debug_mode("default")
     if not torch.equal(T, T2):
         raise AssertionError("icp_track: two runs on the same frames differ")
-    return err, stats.tolist()
+    return err, stats.tolist(), counts
 
 
 def phase_icp_track():
-    """The two dense-ICP rows of the bench at 640x480, three levels, then a
-    short run of each remaining branch of the step (photometric rows,
-    bilinear association) at 160x120. Returns ms per track by setting."""
+    """The two dense-ICP rows of the bench at 640x480, three levels: each
+    track launches the fused step kernel once a Gauss-Newton step and K4 not
+    at all; then a short run of each branch of the step that still goes
+    through K4 (photometric rows, bilinear association) at 160x120. Each
+    bench row also gives the launches on the device and the busy time of one
+    track under the profiler, and the CUDA-graph slope of chained tracks (the
+    device time without the host's launching). Returns ms per track by
+    setting and K4's launches (its path, the photometric and bilinear tracks,
+    each counted from zero)."""
+    from rgbd_pose_estimation_tpu_torch.tools.roofline import timeit_chain
+
     eye = torch.eye(4, device=DEV)
     out, ms_by_name = {}, {}
     for name, cfg in (("dense", ICP_DENSE), ("config3", ICP_CONFIG3)):
         src, tgt, T_gt = icp_scene(cfg)
-        err, stats = track_once(CAM, cfg, src, tgt, T_gt, K4_LAUNCHES[name])
+        steps = STEPS_PER_TRACK[name]
+        err, stats, _ = track_once(CAM, cfg, src, tgt, T_gt, {"icp_assoc_jtj_jtr": steps})
         ms = time_ms(lambda: icp_track(CAM, cfg, eye, src, tgt), reps=9, inner=1, warmup=1)
         ms_by_name[name] = ms
+        fused = device_summary(profile_device(lambda: icp_track(CAM, cfg, eye, src, tgt)))
         out[name] = {
             "source_stride": cfg.source_stride, "reassoc_every": cfg.reassoc_every,
-            "iters_per_level": cfg.iters_per_level, "icp_jtj_jtr_launches": K4_LAUNCHES[name],
+            "iters_per_level": cfg.iters_per_level, "icp_assoc_jtj_jtr_launches": steps,
             "pose_max_err": err, "stats": stats,
             "ms_per_track": ms, "frames_per_s": 1e3 / ms,
+            "device_launches_per_track": fused["cuda_kernel_launches"],
+            "unfused_route_device_launches_per_track": UNFUSED_LAUNCHES_PER_TRACK.get(name),
+            "device_busy_ms": fused["device_busy_ms"],
+            "graph_ms_per_track": 1e3 * timeit_chain(
+                lambda T: icp_track(CAM, cfg, T, src, tgt)[0], eye, n1=2, n2=12),
         }
     small = CAM.scaled(0.25)
+    k4_counts = {}
     for name, cfg, intensity in (
         ("photometric_160x120", IcpConfig(photometric_weight=0.5), True),
         ("bilinear_160x120", IcpConfig(association="bilinear"), False),
     ):
         src, tgt, T_gt = icp_scene(cfg, small, intensity)
-        err, stats = track_once(small, cfg, src, tgt, T_gt, sum(cfg.iters_per_level))
-        out[name] = {"pose_max_err": err, "stats": stats}
+        err, stats, counts = track_once(small, cfg, src, tgt, T_gt,
+                                        {"icp_jtj_jtr": sum(cfg.iters_per_level)})
+        out[name] = {"pose_max_err": err, "stats": stats, "icp_jtj_jtr_launches": counts["icp_jtj_jtr"]}
+        for k, v in counts.items():
+            k4_counts[k] = k4_counts.get(k, 0) + v
     emit("icp_track", width=CAM.width, height=CAM.height, levels=3, **out)
-    return ms_by_name
+    return ms_by_name, k4_counts
 
 
 # Bounds of the odometry phase. 12 frames of smooth motion (0.8 cm, 0.5 deg a
@@ -1061,9 +1300,8 @@ def phase_odometry():
 
     main = runs["process"]
     tracked = frames - 1
-    if main["counts"]["icp_jtj_jtr"] != tracked * K4_LAUNCHES["config3"]:
-        raise AssertionError(f"odometry: {main['counts']['icp_jtj_jtr']} icp_jtj_jtr launches "
-                             f"over {tracked} tracked frames")
+    expect_launches(main["counts"], {"icp_assoc_jtj_jtr": tracked * STEPS_PER_TRACK["config3"]},
+                    f"odometry over {tracked} tracked frames")
     emit(
         "odometry", frames=frames, width=CAM.width, height=CAM.height,
         icp=vars(cfg.icp), keyframe=vars(cfg.keyframe),
@@ -1071,7 +1309,7 @@ def phase_odometry():
                      "center_err_m": r["center_err_m"], "rotation_err": r["rotation_err"],
                      "max_diff_vs_process": r["max_diff_vs_process"]}
               for name, r in runs.items()},
-        icp_jtj_jtr_launches_per_frame=main["counts"]["icp_jtj_jtr"] / frames,
+        icp_assoc_jtj_jtr_launches_per_frame=main["counts"]["icp_assoc_jtj_jtr"] / frames,
         stream_vs_process_one_keyframe=strict,
     )
     return main["counts"]
@@ -1080,9 +1318,11 @@ def phase_odometry():
 # Substring of each hand-written kernel's name in a profiler trace.
 DEVICE_NAMES = {
     "minimal_moments": ("minimal_moments_kernel",),
-    "score_poses_3d3d_quad_fused": ("quad_score_kernel",),
+    "score_poses_3d3d_quad_fused": ("quad_bf16_mma_kernel",),
+    "quad_fused_cuda_cores": ("quad_score_kernel",),
     "score_poses_3d3d": ("score3d_kernel",),
     "icp_jtj_jtr": ("icp_jtj_partial_kernel", "icp_jtj_finish_kernel"),
+    "icp_assoc_jtj_jtr": ("icp_assoc_kernel",),
     "score_poses_2d3d": ("score2d_kernel",),
     "variant_A": ("score3d_kernel",),
     "variant_C": ("quad_score_kernel",),
@@ -1138,14 +1378,23 @@ def set_device_ms(records, rows):
             rec["device_ms"] = total_us / launches / 1e3
 
 
+def device_ms_alone(name, fn, n=20):
+    """Device time of one call of kernel ``name``'s wrapper, from ``n`` calls
+    under the profiler; None where the profiler sees no device time."""
+    rec = [{"name": name, "device_ms": None}]
+    set_device_ms(rec, profile_device(lambda: [fn() for _ in range(n)]))
+    return rec[0]["device_ms"]
+
+
 def phase_stages(p, q, records, track_ms):
     """Where an estimate's time goes: each layer alone, synchronous, through
     the same public functions the engine calls (it is eager PyTorch around
     the three kernels, so most of this is the launching of small kernels).
     Then one estimate and one config-3 track under the profiler, for the
-    device's side of them; each record gets its kernel's time on the device
-    (``device_ms``, None where the profiler saw no device activity; K4's
-    record has its own, taken alone at the record's shape)."""
+    device's side of them; each record of the estimate's kernels gets its
+    kernel's time on the device there (``device_ms``, None where the profiler
+    saw no device activity; the ICP kernels' records have their own, taken
+    alone at the record's shape)."""
     g = generator(7)
     idx = sample_minimal_sets(g, N, K, M)
     mom = minimal_moments(idx, p, q)
@@ -1174,27 +1423,25 @@ def phase_stages(p, q, records, track_ms):
         rec["device_ms"] = None
     set_device_ms(in_estimate, rows)
     track = device_summary(track_rows)
-    # K4's record keeps its time alone at one shape; the track's mean over its
-    # 13 launches (3 at M = 19200, 10 at M = 4800) stands here.
-    in_track = [{"name": "icp_jtj_jtr", "device_ms": None}]
+    # The fused step's record keeps its time alone at one shape; the track's
+    # mean over its 13 launches (3 at M = 19200, 10 at M = 4800) stands here.
+    in_track = [{"name": "icp_assoc_jtj_jtr", "device_ms": None}]
     set_device_ms(in_track, track_rows)
-    track["icp_jtj_jtr_device_ms_per_launch"] = in_track[0]["device_ms"]
+    track["icp_assoc_jtj_jtr_device_ms_per_launch"] = in_track[0]["device_ms"]
     if track["device_busy_ms"] is not None:
         track["ms_per_track"] = track_ms
         track["idle_share"] = 1.0 - track["device_busy_ms"] / track_ms
 
     # The layers of one config-3 Gauss-Newton step at level 0, each alone.
-    step, step_rows = level_step(CAM, ICP_CONFIG3, src, tgt, 0)
-    data = step_rows(eye)[0]
-    JtJ, Jtr, _, _ = icp_jtj_jtr(*data)
+    step, _ = level_step(CAM, ICP_CONFIG3, src, tgt, 0)
+    acc, _ = fused_level(ICP_CONFIG3, src, tgt, 0)
+    JtJ, Jtr = (x.clone() for x in acc(eye)[:2])
     H = JtJ + 1e-6 * torch.eye(6, device=DEV)
     depth, _ = synthetic_depth_scene(CAM, eye)
     step_ms = {
         "make_icp_frame 640x480, 3 levels": lambda: make_icp_frame(CAM, depth, ICP_CONFIG3),
-        "level closure (strided views, packed target map)": lambda: level_step(
-            CAM, ICP_CONFIG3, src, tgt, 0),
-        "warp + associate + weights (19200 rows)": lambda: step_rows(eye),
-        "icp_jtj_jtr (K4)": lambda: icp_jtj_jtr(*data),
+        "level closure (checks, buffers)": lambda: level_step(CAM, ICP_CONFIG3, src, tgt, 0),
+        "icp_assoc_jtj_jtr (fused warp + associate + weights + sums, 19200 samples)": lambda: acc(eye),
         "solve_ex 6x6": lambda: torch.linalg.solve_ex(H, -Jtr[:, None]),
         "se3_exp + compose": lambda: se3_exp(Jtr) @ eye,
         "whole step": lambda: step(eye),
@@ -1524,24 +1771,21 @@ def main():
     records = phase_kernels()
     counts, (p, q, T_gt) = phase_estimate()
     counts_2d3d, (pts, obs, _, ms_2d3d) = phase_estimate_2d3d()
-    track_ms = phase_icp_track()
+    track_ms, k4_counts = phase_icp_track()
     odometry_counts = phase_odometry()
     phase_stages(p, q, records, track_ms["config3"])
     phase_stages_2d3d(pts, obs, ms_2d3d, records)
     phase_adaptive(p, q, T_gt)
     phase_reference()
 
-    # Launches on each kernel's own main path: the 3D-3D estimates for K1-K3,
-    # the synchronous odometry run for K4, the 2D-3D estimates for K5, each
-    # counted from zero.
+    # Launches on each kernel's own main path, each counted from zero: the
+    # 3D-3D estimates for K1-K3, the 2D-3D estimates for K5, the synchronous
+    # odometry run for the fused ICP step, and the photometric and bilinear
+    # tracks for K4, the steps that still make their rows in PyTorch.
+    paths = {"score_poses_2d3d": counts_2d3d, "icp_assoc_jtj_jtr": odometry_counts,
+             "icp_jtj_jtr": k4_counts}
     for rec in records:
-        if rec["name"] in ESTIMATE_KERNELS:
-            path = counts
-        elif rec["name"] == "score_poses_2d3d":
-            path = counts_2d3d
-        else:
-            path = odometry_counts
-        rec["launches"] = path[rec["name"]]
+        rec["launches"] = paths.get(rec["name"], counts)[rec["name"]]
         if rec["launches"] < 1:
             raise AssertionError(f"{rec['name']} was not launched by the main path")
     # T1-T6: launches of the harness phase, counted from zero there.

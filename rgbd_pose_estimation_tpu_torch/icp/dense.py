@@ -1,16 +1,22 @@
 """Dense projective point-to-plane ICP odometry (KinectFusion-style).
 
 Counterpart of the JAX package's ``icp/dense.py``. Each Gauss-Newton
-iteration is three device stages —
+iteration is three stages —
 
 1. warp: transform every source vertex by the current pose and project it
-   into the target camera (elementwise tensor arithmetic);
+   into the target camera;
 2. associate: gather target vertices / normals at the projected pixels, gate
    by distance / normal-agreement / depth validity, weight by a Huber robust
    kernel;
-3. accumulate: the hand-written CUDA kernel (ops/icp_jtj.py) reduces the
-   point-to-plane normal equations on the card; a 6x6 damped solve and an
-   SE(3) retraction finish the iteration.
+3. accumulate: reduce the point-to-plane normal equations; a 6x6 damped
+   solve and an SE(3) retraction finish the iteration.
+
+On the card, the depth-only step with nearest association (the bench's and
+the odometry server's) runs stages 1-3 up to the solve as one hand-written
+CUDA kernel (ops/icp_jtj.py::icp_assoc_jtj_jtr). The photometric and the
+bilinear steps, and every step on the CPU, make stages 1-2 with tensor
+arithmetic (ops/icp_jtj.py::icp_assoc_rows_reference) and accumulate with K4
+(ops/icp_jtj.py::icp_jtj_jtr) or its plain version.
 
 The pyramid is coarse-to-fine; iterations per level are fixed. A whole
 multi-level track runs without one value read back to the host: every
@@ -31,16 +37,17 @@ import torch
 from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
 from rgbd_pose_estimation_tpu_torch.core.lie import se3_exp
 from rgbd_pose_estimation_tpu_torch.data.geometry import (
-    bilinear_sample,
     build_pyramid,
     downsample_intensity,
-    nearest_sample,
     normal_map,
     photo_map,
-    pixel_index,
     vertex_map,
 )
-from rgbd_pose_estimation_tpu_torch.ops.icp_jtj import icp_jtj_jtr
+from rgbd_pose_estimation_tpu_torch.ops.icp_jtj import (
+    icp_assoc_jtj_jtr,
+    icp_assoc_rows_reference,
+    icp_jtj_jtr,
+)
 from rgbd_pose_estimation_tpu_torch.utils.config import IcpConfig
 
 
@@ -87,8 +94,16 @@ def _level_iteration(
     src_ph=None, tgt_ph=None, level: int = 0,
 ):
     """Returns ``(step, rows)`` for one pyramid level: step(T, assoc) →
-    (T', stats, assoc), and its first half alone, rows(T, assoc): the residual
-    rows ``(p, q, n, w)`` that the step hands the accumulation kernel.
+    (T', stats, assoc), and rows(T, assoc): the residual rows ``(p, q, n,
+    w)`` of the step, in plain PyTorch (ops/icp_jtj.py::icp_assoc_rows_reference).
+
+    On the card, a depth-only step with nearest association is ONE kernel
+    (ops/icp_jtj.py::icp_assoc_jtj_jtr): the rows are made and accumulated
+    in registers and never reach device memory; its ``assoc`` is the level's
+    map of target pixels. Every other step (CPU tensors, the photometric term,
+    bilinear association) makes the rows with ``rows`` and accumulates them
+    with K4 (ops/icp_jtj.py::icp_jtj_jtr); its ``assoc`` is the tuple
+    ``rows`` returns. ``rows`` takes that tuple too.
 
     With ``cfg.photometric_weight > 0`` and photo maps present, a DVO-style
     intensity residual r_I = I_tgt(π(Tp)) − I_src rides alongside point-to-
@@ -99,16 +114,6 @@ def _level_iteration(
     """
 
     stride = cfg.source_stride[level] if level < len(cfg.source_stride) else 1
-    if stride > 1:
-        # Thin the residual sample: the target maps stay full resolution.
-        src_v = src_v[::stride, ::stride]
-        src_n = src_n[::stride, ::stride]
-        if src_ph is not None:
-            src_ph = src_ph[::stride, ::stride]
-    sv = src_v.reshape(-1, 3)
-    sn = src_n.reshape(-1, 3)
-    src_valid = (sv[:, 2] > 0) & (torch.sum(sn * sn, dim=-1) > 0.5)
-
     use_photo = (
         cfg.photometric_weight > 0.0
         and src_ph is not None
@@ -118,120 +123,58 @@ def _level_iteration(
         raise NotImplementedError(
             "photometric term requires association='nearest'"
         )
+    intrinsics = (cam_l.fx, cam_l.fy, cam_l.cx, cam_l.cy)
+    thresholds = (cfg.dist_threshold, cfg.normal_threshold, cfg.huber_delta)
+    fused = tgt_v.is_cuda and cfg.association == "nearest" and not use_photo
+    if fused:
+        accumulate = icp_assoc_jtj_jtr(src_v, src_n, tgt_v, tgt_n, stride, intrinsics, thresholds)
 
-    # For nearest association everything the step needs — vertex, normal,
-    # and optionally intensity+gradient — is packed into ONE flat map and
-    # gathered once per iteration.
-    th, tw = tgt_v.shape[:2]
-    if cfg.association == "nearest":
-        packs = [tgt_v.reshape(-1, 3), tgt_n.reshape(-1, 3)]
+    # Thin the residual sample: the target maps stay full resolution.
+    src_v = src_v[::stride, ::stride]
+    src_n = src_n[::stride, ::stride]
+    # What rows() needs at every step, made once a level. The fused step needs
+    # none of it; on its levels rows() makes it at each call.
+    if not fused:
+        sv = src_v.reshape(-1, 3)
+        sn = src_n.reshape(-1, 3)
+        level_inputs = {
+            "src_valid": (sv[:, 2] > 0) & (torch.sum(sn * sn, dim=-1) > 0.5),
+            "bilinear": cfg.association != "nearest",
+        }
+        # For nearest association everything the step needs — vertex,
+        # normal, and optionally intensity+gradient — is packed into ONE
+        # flat map and gathered once per iteration.
+        if cfg.association == "nearest":
+            packs = [tgt_v.reshape(-1, 3), tgt_n.reshape(-1, 3)]
+            if use_photo:
+                packs.append(tgt_ph.reshape(-1, 3))
+            level_inputs["tgt_pack"] = torch.cat(packs, dim=-1)
         if use_photo:
-            packs.append(tgt_ph.reshape(-1, 3))
-        tgt_pack = torch.cat(packs, dim=-1)
-    if use_photo:
-        si = src_ph.reshape(-1, 3)[:, 0]  # source intensity
+            si = src_ph[::stride, ::stride].reshape(-1, 3)[:, 0]  # source intensity
+            level_inputs["photo"] = (si, cfg.photometric_weight, cfg.photo_huber)
 
     def rows(T, assoc=None):
         """Warp, associate, gate and weight. ``assoc=None`` performs fresh
-        association (the gather); passing the previous step's ``assoc``
+        association (the gather); passing the previous call's ``assoc``
         reuses it (standard ICP alternation: several minimize steps per
         association). Returns ``((p, q, n, w), geometric weights, assoc)``."""
-        R, t = T[:3, :3], T[:3, 3]
-        p = sv @ R.T + t  # source vertices in target frame
-        n_src = sn @ R.T
-
-        z = torch.clamp(p[:, 2], min=1e-6)
-        u = cam_l.fx * p[:, 0] / z + cam_l.cx
-        v = cam_l.fy * p[:, 1] / z + cam_l.cy
-
-        if cfg.association == "nearest":
-            if assoc is None:
-                # A point at z <= 0 projects as far as 5e8·|x| pixels out:
-                # pixel_index clamps before the cast to int32.
-                ui = pixel_index(torch.round(u))
-                vi = pixel_index(torch.round(v))
-                in_b = (ui >= 0) & (ui < tw) & (vi >= 0) & (vi < th)
-                idx = torch.clamp(vi, 0, th - 1) * tw + torch.clamp(ui, 0, tw - 1)
-                g = tgt_pack[idx.long()]  # the ONE gather
-                assoc = (g, in_b, ui, vi)
-            g, in_b, ui, vi = assoc
-            q, nt = g[:, 0:3], g[:, 3:6]
-            q = torch.where(in_b[:, None], q, 0.0)
-            nt = torch.where(in_b[:, None], nt, 0.0)
-        else:
-            uv = torch.stack([u, v], dim=-1)
-            q, in_b = bilinear_sample(tgt_v, uv)
-            nt, _ = nearest_sample(tgt_n, uv)
-
-        diff = p - q
-        dist2 = torch.sum(diff * diff, dim=-1)
-        ncos = torch.sum(nt * n_src, dim=-1)
-        r = torch.sum(nt * diff, dim=-1)
-
-        valid = (
-            src_valid
-            & in_b
-            & (p[:, 2] > 0)
-            & (q[:, 2] > 0)
-            & (torch.sum(nt * nt, dim=-1) > 0.5)
-            & (dist2 < cfg.dist_threshold**2)
-            & (ncos > cfg.normal_threshold)
-        )
-        # Huber weight on the point-to-plane residual.
-        absr = torch.abs(r)
-        w_rob = torch.where(
-            absr <= cfg.huber_delta, 1.0, cfg.huber_delta / torch.clamp(absr, min=1e-12)
-        )
-        w = torch.where(valid, w_rob, 0.0)
-        out = (p, q, nt, w)
-
-        if use_photo:
-            # First-order subpixel correction of the nearest-gathered
-            # intensity, then the DVO chain a = ∇I · dπ/dp.
-            ti, tgx, tgy = g[:, 6], g[:, 7], g[:, 8]
-            du = u - ui.to(u.dtype)
-            dv = v - vi.to(v.dtype)
-            r_i = ti + tgx * du + tgy * dv - si
-            ax = tgx * cam_l.fx / z
-            ay = tgy * cam_l.fy / z
-            az = -(tgx * cam_l.fx * p[:, 0] + tgy * cam_l.fy * p[:, 1]) / (z * z)
-            a = torch.stack([ax, ay, az], dim=-1)
-            a2 = torch.sum(a * a, dim=-1)
-            valid_ph = (
-                src_valid
-                & in_b
-                & (p[:, 2] > 0)
-                & (q[:, 2] > 0)
-                & (dist2 < cfg.dist_threshold**2)
-                & (a2 > 1e-8)
-            )
-            abri = torch.abs(r_i)
-            w_ph = torch.where(
-                abri <= cfg.photo_huber,
-                1.0,
-                cfg.photo_huber / torch.clamp(abri, min=1e-12),
-            )
-            w_ph = torch.where(valid_ph, w_ph * cfg.photometric_weight, 0.0)
-            # Virtual target point: the kernel computes n·(p − q), so pick
-            # q_virt with a·(p − q_virt) = r_I.
-            q_virt = p - (r_i / torch.clamp(a2, min=1e-8))[:, None] * a
-            # Geometric and photometric rows go through ONE accumulation,
-            # so every sum (the error and the weight included) covers both.
-            out = (
-                torch.cat([p, p]),
-                torch.cat([q, q_virt]),
-                torch.cat([nt, a]),
-                torch.cat([w, w_ph]),
-            )
-        return tuple(x.contiguous() for x in out), w, assoc
+        if fused:
+            return icp_assoc_rows_reference(
+                T, src_v.reshape(-1, 3), src_n.reshape(-1, 3), tgt_v, tgt_n,
+                intrinsics, thresholds, assoc)
+        return icp_assoc_rows_reference(
+            T, sv, sn, tgt_v, tgt_n, intrinsics, thresholds, assoc, **level_inputs)
 
     def step(T, assoc=None):
         """One GN iteration; ``assoc`` as in ``rows``. Returns
         ``(T_new, stats, assoc)``."""
-        data, w, assoc = rows(T, assoc)
-        JtJ, Jtr, err, wsum_all = icp_jtj_jtr(*data)
-        # Overlap bookkeeping stays GEOMETRIC-only (keyframe policy signal).
-        wsum = torch.sum(w) if use_photo else wsum_all
+        if fused:
+            JtJ, Jtr, err, wsum, assoc = accumulate(T, assoc)
+        else:
+            data, w, assoc = rows(T, assoc)
+            JtJ, Jtr, err, wsum_all = icp_jtj_jtr(*data)
+            # Overlap bookkeeping stays GEOMETRIC-only (keyframe policy signal).
+            wsum = torch.sum(w) if use_photo else wsum_all
 
         H = JtJ + cfg.damping * torch.eye(6, dtype=JtJ.dtype, device=JtJ.device)
         # solve_ex neither checks its status on the host (which would stall
@@ -246,7 +189,9 @@ def _level_iteration(
     return step, rows
 
 
-def level_step(cam: CameraIntrinsics, cfg: IcpConfig, src: IcpFrame, tgt: IcpFrame, level: int):
+def level_step(
+    cam: CameraIntrinsics, cfg: IcpConfig, src: IcpFrame, tgt: IcpFrame, level: int,
+):
     """``(step, rows)`` of pyramid level ``level`` of a frame pair (see
     :func:`_level_iteration`); ``cam`` is the full-resolution camera."""
     has_photo = len(src.photo) > 0 and len(tgt.photo) > 0

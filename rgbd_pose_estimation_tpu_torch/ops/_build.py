@@ -46,7 +46,12 @@ _SIGNATURES = {
     "score_poses_2d3d": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     # p, q, n, w, partials, out, M, blocks
     "icp_jtj_jtr": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # src_v, src_n, tgt_v, tgt_n, assoc, partials, out, ticket, H, W, stride,
+    # th, tw, blocks, fx, fy, cx, cy, dist2, normal_thr, huber, T, fresh
+    "icp_assoc_jtj_jtr": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P, _I, _P],
     # The measurement harness's kernels (tools/msac_opt.py, tools/roofline.py).
+    # K2's first design, on the CUDA cores: feat, pn, out, K, N, tau2
+    "quad_fused_cuda_cores": [_P, _P, _P, _I, _I, _F, _P],
     # poses, p, q, msac, count, K, N, tau2, poses_per_block
     "msac_variant_a": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     # feat, pn, msac, count, K, N, tau2

@@ -1,11 +1,15 @@
-// Fast MSAC ranking of K poses: sum_n clip(feat_k . pn_n, 0, tau^2).
+// Fast MSAC ranking of K poses on the CUDA cores:
+// sum_n clip(feat_k . pn_n, 0, tau^2).
 //
-// Replaces the TPU kernel `_quad_fused_kernel` of
+// The first design of K2, the port of the TPU kernel `_quad_fused_kernel` of
 // rgbd_pose_estimation_tpu/ops/ransac_score.py
-// (`score_poses_3d3d_quad_fused`): the squared residual |R p + t - q|^2 of
-// an orthonormal pose factors into a 17-term bilinear form, so all K x N
-// residuals are one (K, 17) x (17, N) product whose clip-and-row-sum
-// epilogue is fused: the (K, N) matrix never reaches device memory.
+// (`score_poses_3d3d_quad_fused`); K2 now runs on the tensor cores
+// (quad_bf16_mma.cu) and this design stays in the library as the harness
+// entry `quad_fused_cuda_cores`, so that both are timed on one card in one
+// run. The squared residual |R p + t - q|^2 of an orthonormal pose factors
+// into a 17-term bilinear form, so all K x N residuals are one (K, 17) x
+// (17, N) product whose clip-and-row-sum epilogue is fused: the (K, N) matrix
+// never reaches device memory.
 //
 // Contract kept from the TPU kernel: both operands are rounded to bf16
 // (round to nearest even) and the products are accumulated in f32. The
@@ -19,8 +23,8 @@
 // The same kernel, with its three template flags turned the other way,
 // replaces `_kernel_C` of tools/msac_opt.py (`variant_C`, T2): f32 operands
 // not rounded, min(e, tau^2) instead of the clip, and the inlier count
-// sum_n [e < tau^2] beside the sum. One design serves both; K2's
-// instantiation is the code it was before the flags.
+// sum_n [e < tau^2] beside the sum. One design serves both; the CUDA-core
+// K2 is `<true, true, false>`.
 //
 // Bound on this card: operations, 2*17*K*N for the product plus about
 // 3*K*N for the epilogue, against the bf16 tensor-core peak (T2: the f32
@@ -157,11 +161,11 @@ quad_score_kernel(const float* __restrict__ feat,  // (K, 17)
 
 }  // namespace
 
-// feat (K, 17) f32, pn (17, N) f32, out (K,) f32; all contiguous.
-extern "C" int rgbd_score_poses_3d3d_quad_fused(const float* feat,
-                                                const float* pn, float* out,
-                                                int K, int N, float tau2,
-                                                cudaStream_t stream) {
+// The CUDA-core K2: feat (K, 17) f32, pn (17, N) f32, out (K,) f32; all
+// contiguous.
+extern "C" int rgbd_quad_fused_cuda_cores(const float* feat, const float* pn,
+                                          float* out, int K, int N, float tau2,
+                                          cudaStream_t stream) {
   const int blocks = (K + kPoseTile - 1) / kPoseTile;
   quad_score_kernel<true, true, false><<<blocks, kThreads, 0, stream>>>(
       feat, pn, out, nullptr, K, N, tau2);

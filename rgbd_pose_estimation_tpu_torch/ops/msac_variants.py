@@ -17,6 +17,10 @@ returns per pose ``Σ_n min(e_kn, τ²)`` and, except D, the inlier count
   a count; ``csrc/quad_score.cu``);
 - :func:`variant_M` (T3) — the same function on the tensor cores, 3xTF32
   (``csrc/quad_mma.cu``);
+- :func:`quad_fused_cuda_cores` — K2's function (``Σ_n clip(e_kn, 0, τ²)``
+  on bf16-rounded operands, no count) on K2's first, CUDA-core design
+  (``csrc/quad_score.cu``), kept beside the tensor-core kernel that the
+  estimator launches so that the two are timed on one card;
 - :func:`variant_X` — the library route: ``torch.matmul`` of the quad form,
   then clamp and sums. Never a kernel of this package and never on a path;
   the tools time it beside the kernels.
@@ -38,6 +42,7 @@ import torch
 from rgbd_pose_estimation_tpu_torch.ops import _build
 from rgbd_pose_estimation_tpu_torch.ops.ransac_score import (
     _quad_features,
+    _quad_scores_reference,
     _score_packed_reference,
     pack_poses,
 )
@@ -161,6 +166,24 @@ def quad_M(feat, pn, tau: float):
     if not feat.is_cuda:
         return quad_M_reference(feat, pn, tau)
     return _quad_launch("msac_variant_m", feat, pn, tau)
+
+
+def quad_fused_cuda_cores(feat, pn, tau: float):
+    """K2's ranking scores ``(K,)`` on prebuilt f32 operands ``feat (K, 17)``,
+    ``pn (17, N)``, by its CUDA-core design; the plain version is K2's,
+    ``ops.ransac_score._quad_scores_reference``."""
+    if not feat.is_cuda:
+        return _quad_scores_reference(feat, pn, tau)
+    dev = feat.device
+    K, N = feat.shape[0], pn.shape[1]
+    if min(K, N) < 1:
+        raise ValueError(f"quad_fused_cuda_cores: empty problem K={K} N={N}")
+    _build.check_cuda_input("feat", feat, torch.float32, (K, 17), dev)
+    _build.check_cuda_input("pn", pn, torch.float32, (17, N), dev)
+    out = torch.empty((K,), dtype=torch.float32, device=dev)
+    _build.launch("quad_fused_cuda_cores", feat.data_ptr(), pn.data_ptr(), out.data_ptr(),
+                  K, N, float(tau) ** 2)
+    return out
 
 
 @contextlib.contextmanager

@@ -8,7 +8,7 @@ the selector built on the first two:
   ``_score3d_kernel``);
 - :func:`score_poses_3d3d_quad_fused` — fast MSAC ranking through the
   17-term bilinear form with bf16-rounded operands (CUDA kernel
-  ``csrc/quad_score.cu``, replacing the Pallas kernel
+  ``csrc/quad_bf16_mma.cu``, on the tensor cores, replacing the Pallas kernel
   ``_quad_fused_kernel``);
 - :func:`best_pose_3d3d` — fast ranking of all K, exact re-score of a few
   finalists, argmin;

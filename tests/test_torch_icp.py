@@ -21,6 +21,8 @@ from rgbd_pose_estimation_tpu.data import synthetic as jsyn
 from rgbd_pose_estimation_tpu.icp import dense as jdense
 from rgbd_pose_estimation_tpu.utils.config import IcpConfig as JIcpConfig
 from rgbd_pose_estimation_tpu_torch.icp import dense as tdense
+from rgbd_pose_estimation_tpu_torch.ops import _build
+from rgbd_pose_estimation_tpu_torch.ops.icp_jtj import icp_assoc_jtj_jtr
 from rgbd_pose_estimation_tpu_torch.utils.convert import (
     camera_from_reference,
     config_from_reference,
@@ -164,6 +166,38 @@ def test_one_step_from_the_same_pose(name, reference_frames, monkeypatch):
         np.testing.assert_allclose(s2_t.numpy(), np.asarray(s2_j), rtol=1e-3)
     else:
         assert assoc_t is None and assoc_j is None
+
+
+@pytest.mark.parametrize("name", ["nearest", "stride_reassoc"])
+def test_fused_step_plain_version_matches_reference(name, reference_frames, monkeypatch):
+    """What the fused CUDA step is held to on the card, its plain version
+    (``ops/icp_jtj.py``: the rows of ``icp_assoc_rows_reference``, then
+    ``icp_jtj_jtr_reference``), against the normal equations of the JAX
+    package's step: a fresh step from the pose of
+    ``test_one_step_from_the_same_pose``, then a carried one from the pose
+    that step reached, at the finest level, unstrided (the dense setting) and
+    at stride 2 with re-association every 2nd iteration (config 3's kind).
+    Tolerance as there: sums over ~4800 or ~1200 rows in another order."""
+    cfg = CONFIGS[name]
+    step_j, _, _ = _step_pair(cfg, reference_frames[::-1], level=0)
+    seen_j = _spy(monkeypatch, jdense)
+    src_j, tgt_j = _frames_for(cfg, reference_frames[::-1])
+    src, tgt = (icp_frame_from_reference(f, "cpu") for f in (src_j, tgt_j))
+    accumulate = icp_assoc_jtj_jtr(
+        src.vertices[0], src.normals[0], tgt.vertices[0], tgt.normals[0], cfg.source_stride[0],
+        (CAM.fx, CAM.fy, CAM.cx, CAM.cy), (cfg.dist_threshold, cfg.normal_threshold, cfg.huber_delta))
+    T0 = np.asarray(jse3_exp(jnp.asarray([0.004, 0.0, -0.003, -0.005, 0.004, 0.0], jnp.float32)))
+    before = _build.launch_counts()
+    T_j, _, assoc_j = step_j(jnp.asarray(T0))
+    *fresh, assoc = accumulate(to_torch(T0, "cpu"))
+    step_j(T_j, assoc_j)
+    *carried, again = accumulate(to_torch(np.asarray(T_j), "cpu"), assoc)
+    assert again is assoc and assoc[0].shape[0] == (60 // cfg.source_stride[0]) * (80 // cfg.source_stride[0])
+    assert _build.launch_counts() == before  # CPU tensors: the plain version, no launch
+    for out, ref in ((fresh, seen_j[0]), (carried, seen_j[1])):
+        for a, b in zip(to_numpy(out), ref):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=2e-4, atol=1e-4 * max(1.0, float(np.abs(b).max())))
+        assert float(out[3]) > 500
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

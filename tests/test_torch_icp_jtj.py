@@ -11,13 +11,18 @@ Tolerance rtol 2e-4 / atol 1e-4, the one of ``tests/kernels/test_icp_jtj.py``:
 every entry is a sum of M f32 products taken in another order.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics as JCamera
+from rgbd_pose_estimation_tpu.icp import dense as jdense
 from rgbd_pose_estimation_tpu.ops import icp_jtj as jref
+from rgbd_pose_estimation_tpu.utils.config import IcpConfig as JIcpConfig
 from rgbd_pose_estimation_tpu_torch.ops import _build
+from rgbd_pose_estimation_tpu_torch.ops import icp_jtj as tops
 from rgbd_pose_estimation_tpu_torch.ops.icp_jtj import icp_jtj_jtr, icp_jtj_jtr_reference
 from rgbd_pose_estimation_tpu_torch.utils.convert import to_numpy, to_torch
 
@@ -113,3 +118,68 @@ def test_photometric_rows_concatenate():
     _assert_same(whole, [x + y for x, y in zip(*to_numpy(parts))])
     data = jnp.concatenate([jref.pack_icp_data(*[jnp.asarray(x) for x in r]) for r in (a, b)], axis=1)
     _assert_same(whole, jref.icp_jtj_jtr(data, impl="reference"))
+
+
+def _fused_and_reference(monkeypatch, *poses):
+    """The fused step's plain version (what the kernel is held to on the
+    card) and the JAX package's step, on the same 16x12 plane-like maps at
+    stride 2 (48 samples), at each of ``poses``. Returns, per pose, the
+    port's ``(JtJ, Jtr, err_sum, weight_sum, assoc)`` and the JAX
+    accumulation of the JAX step's own rows."""
+    rng = np.random.default_rng(8)
+    depth = rng.uniform(1.0, 2.0, size=(12, 16)).astype(np.float32)
+    u, v = np.meshgrid(np.arange(16, dtype=np.float32), np.arange(12, dtype=np.float32))
+    verts = np.stack([(u - 7.5) / 20.0 * depth, (v - 5.5) / 20.0 * depth, depth], -1)
+    normals = np.broadcast_to(np.float32([0.0, 0.0, -1.0]), verts.shape).copy()
+    accumulate = tops.icp_assoc_jtj_jtr(
+        *to_torch([verts, normals, verts, normals], "cpu"), 2, (20.0, 20.0, 7.5, 5.5), (0.1, 0.7, 0.01))
+    cfg = JIcpConfig(levels=1, iters_per_level=(1,), source_stride=(2,),
+                     dist_threshold=0.1, normal_threshold=0.7, huber_delta=0.01)
+    maps = [jnp.asarray(x) for x in (verts, normals, verts, normals)]
+    step_j = jdense._level_iteration(JCamera(20.0, 20.0, 7.5, 5.5, 16, 12), cfg, *maps, level=0)
+    seen = []
+    inner = jdense.icp_jtj_jtr
+
+    def spy(data):
+        seen.append(inner(data))
+        return seen[-1]
+
+    monkeypatch.setattr(jdense, "icp_jtj_jtr", spy)
+
+    @jax.jit  # one compile of the step, not one per primitive
+    def reference(T):
+        step_j(T)
+        return seen.pop()
+
+    return [(accumulate(T), reference(jnp.asarray(T.numpy()))) for T in poses]
+
+
+def test_fused_step_nan_pose_gives_nan_sums(monkeypatch):
+    """A NaN pose through the fused step's plain version and through the JAX
+    package's step on the same maps: every row is multiplied through with
+    weight 0, so the sums that involve p are NaN, those of the normals alone
+    are 0, and the weight sum is exactly 0 (the step then takes no step), in
+    both. The JAX step casts a NaN pixel to 0 and gathers there, the port
+    counts it out of bounds: either way the row's weight is 0 and its normal
+    finite, so the NaN patterns agree entry for entry."""
+    [((JtJ, Jtr, err, wsum, assoc), ref)] = _fused_and_reference(
+        monkeypatch, torch.full((4, 4), float("nan")))
+    assert assoc[0].shape == (48, 6)
+    assert (JtJ[:3, :3] == 0).all() and torch.isnan(JtJ[3:]).all() and torch.isnan(JtJ[:, 3:]).all()
+    assert torch.isnan(Jtr).all() and torch.isnan(err) and float(wsum) == 0.0
+    for a, b in zip(to_numpy((JtJ, Jtr, err, wsum)), ref):
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(np.asarray(b)))
+        np.testing.assert_array_equal(np.nan_to_num(a), np.nan_to_num(np.asarray(b)))
+
+
+def test_fused_step_sees_all_or_nothing(monkeypatch):
+    """At the identity every sample associates to itself (weight sum 48 in
+    both packages, the sums as the JAX step's); five metres to the side no
+    sample lands on the target, and every sum is exactly 0 in both."""
+    far = torch.eye(4)
+    far[0, 3] = 5.0
+    (out, ref), (out_far, ref_far) = _fused_and_reference(monkeypatch, torch.eye(4), far)
+    assert float(out[3]) == float(ref[3]) == 48.0
+    _assert_same(out[:4], ref)
+    for a, b in zip(to_numpy(out_far[:4]), ref_far):
+        assert not a.any() and not np.asarray(b).any()
