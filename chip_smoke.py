@@ -63,7 +63,7 @@ from rgbd_pose_estimation_tpu_torch.icp.dense import (
     make_icp_frame,
 )
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
-from rgbd_pose_estimation_tpu_torch.ops import _build
+from rgbd_pose_estimation_tpu_torch.ops import _build, ceilings
 from rgbd_pose_estimation_tpu_torch.ops import msac_variants as mv
 from rgbd_pose_estimation_tpu_torch.ops import ransac_score as rs
 from rgbd_pose_estimation_tpu_torch.ops.icp_jtj import (
@@ -275,19 +275,29 @@ def check_quad_winner(T, p, q):
 def check_exact(T, p, q):
     """K3. Scores rtol 1e-5 (N f32 terms summed in another order). Counts
     are equal except where a residual sits within f32 rounding of τ²: a
-    difference of at most 1, on at most 0.1% of the poses."""
+    difference of at most 1, on at most 0.1% of the poses. A second run must
+    give the same bits, and a NaN pose must score NaN with count 0 (and only
+    a NaN pose NaN)."""
     m_out, c_out = rs.score_poses_3d3d(T, p, q, TAU)
+    m_again, c_again = rs.score_poses_3d3d(T, p, q, TAU)
     m_ref, c_ref = chunked(lambda t: rs.score_poses_3d3d_reference(t, p, q, TAU), T)
     torch.cuda.synchronize()
-    assert_close(m_out, m_ref, 1e-5, 0.0, "score_poses_3d3d msac")
+    what = f"score_poses_3d3d K={T.shape[0]} N={p.shape[0]}"
+    if not (torch.equal(m_out.view(torch.int32), m_again.view(torch.int32))
+            and torch.equal(c_out, c_again)):
+        raise AssertionError(f"{what}: two runs on the same input differ")
+    nan_pose = torch.isnan(T.reshape(T.shape[0], -1)).any(dim=1)
+    if not torch.equal(torch.isnan(m_out), nan_pose) or bool((c_out[nan_pose] != 0).any()):
+        raise AssertionError(f"{what}: a NaN pose does not score NaN with count 0, or another does")
+    assert_close(m_out, m_ref, 1e-5, 0.0, f"{what} msac")
     diff = (c_out - c_ref).abs()
     if float(diff.max()) > 1 or float((diff > 0).float().mean()) > 1e-3:
         raise AssertionError(
-            f"score_poses_3d3d counts: max diff {float(diff.max())}, "
+            f"{what} counts: max diff {float(diff.max())}, "
             f"{int((diff > 0).sum())} of {diff.numel()} poses differ"
         )
     if bool(torch.isnan(c_out).any()):
-        raise AssertionError("score_poses_3d3d: a count is NaN")
+        raise AssertionError(f"{what}: a count is NaN")
     return max_abs_err(m_out, m_ref)
 
 
@@ -684,10 +694,25 @@ def check_score2d(P, pts, obs, tau):
     return out
 
 
+def check_reciprocal():
+    """K5's reciprocal: the kernel takes rcp_rn_normal(z) for 1.f / z on
+    normal depths below 2^126. Both on every positive normal float below
+    2^126, bit for bit: not one may differ."""
+    first, end = 0x00800000, 0x7E800000  # bits of 2^-126 and of 2^126
+    blocks = 132 * 16
+    per_block = torch.empty(blocks, dtype=torch.int32, device=DEV)
+    _build.launch("msac_reciprocal_check", first, end - first, per_block.data_ptr(), blocks)
+    differ = int(per_block.sum())
+    if differ:
+        raise AssertionError(f"rcp_rn_normal differs from 1.f / x on {differ} floats")
+    return {"floats": end - first, "differ": differ}
+
+
 def kernel_score2d():
     """K5 at the main path's shape (8192 root poses x 1024 rows), at the
     large shape, at ragged shapes with and without pad rows, from packed and
-    matrix input, with NaN poses and with every point behind the camera.
+    matrix input, with NaN poses, with every point behind the camera and with
+    depths of 2^126 and more; and its reciprocal on every float it may take.
     Returns (checks, the main-path record, its error, the large record)."""
     tau = config2().threshold
     pts, obs, _ = bench_row_2d3d()
@@ -701,11 +726,14 @@ def kernel_score2d():
     if int(c.max()) < N2D - 2:
         raise AssertionError("score_poses_2d3d: no root pose explains the exact observations")
 
-    # Matrix input is packed by the wrapper: the same bits as packed input.
+    # Matrix input is packed by the wrapper: the same bits as packed input
+    # of the same K (K picks the kernel's layout, and with it the order in
+    # which a pose's N terms are summed).
     T44 = rt_to_matrix(P[:64, :9].reshape(64, 3, 3), P[:64, 9:12])
     m44, c44 = rs.score_poses_2d3d(T44, pts, obs, tau)
-    if not (torch.equal(m44.view(torch.int32), m[:64].view(torch.int32))
-            and torch.equal(c44, c[:64])):
+    m64, c64 = rs.score_poses_2d3d(P[:64].contiguous(), pts, obs, tau)
+    if not (torch.equal(m44.view(torch.int32), m64.view(torch.int32))
+            and torch.equal(c44, c64)):
         raise AssertionError("score_poses_2d3d: (K, 4, 4) and packed input differ")
     checks.append({"shape": "(64, 4, 4) input", "max_abs_err": 0.0})
 
@@ -722,6 +750,11 @@ def kernel_score2d():
     if not torch.equal(c0, c1):
         raise AssertionError("score_poses_2d3d: a pad row was counted as an inlier")
     checks.append({"shape": "K=1 N=1", **check_score2d(R[:1], rp[:1], ro[:1], tau)})
+    # Pose-stationary (K > 1024) at N = 3001: more than one 256-row tile,
+    # and not a multiple of one; K = 2000 is not a multiple of 32.
+    tp, to, _ = contaminated_2d3d(18, 3001)
+    checks.append({"shape": "K=2000 N=3001",
+                   **check_score2d(root_poses(19, 500, tp, to), tp, to, tau)})
 
     # Every point behind the camera: tau^2 each, no inlier, whatever obs says.
     eye = rs.pack_poses(torch.eye(4, device=DEV)[None]).repeat(300, 1)
@@ -732,6 +765,21 @@ def kernel_score2d():
     if float(cb.max()) != 0.0:
         raise AssertionError("score_poses_2d3d: a point behind the camera was counted")
     checks.append({"shape": "K=300 N=77, all behind the camera", "max_abs_err": 0.0})
+
+    # Depths of 2^126 and more, up to the largest float, beside ordinary ones
+    # (48 rows, so that a lane's group of four rows mixes them): the kernel's
+    # exact division of such a group, under both layouts. (An infinite depth
+    # would make both versions NaN: the rotation's zeros times inf.)
+    far = torch.tensor([[0.5, -0.25, 2.0**126], [1.0, 1.0, 3e38], [-2.0, 1.0, 3.4028234e38],
+                        [0.1, 0.2, 1e30], [0.3, -0.1, 4.0], [0.2, 0.1, 2.0**125]], device=DEV)
+    far_obs = torch.tensor([[0.001, 0.0], [0.5, 0.5], [0.0, 0.002], [0.0, 0.0],
+                            [0.075, -0.025], [0.2, 0.0]], device=DEV)
+    for k in (300, 2000):
+        P_far = eye.new_zeros((k, 12))
+        P_far[:] = eye[0]
+        checks.append({"shape": f"K={k} N=48, depths up to 3.4e38",
+                       **check_score2d(P_far, far.repeat(8, 1), far_obs.repeat(8, 1), tau)})
+    checks.append({"reciprocal": "rcp_rn_normal vs 1.f / x", **check_reciprocal()})
 
     # The large case: 131072 poses x 2048 rows.
     lp, lo, _ = bench_row_2d3d(N)
@@ -790,7 +838,8 @@ def contaminated_2d3d(seed, n, outlier_frac=0.3):
 
 
 def phase_kernels():
-    """Returns the per-kernel records of the main-path shapes."""
+    """Returns the per-kernel records of the main-path shapes, and the exact
+    MSAC scorers' rows (K3, K5) for :func:`phase_exact_msac`."""
     checks = []
     # Ragged shapes: K not a multiple of 256, N not a multiple of 128 (the
     # scorers see N = 200 unpadded here, and the sentinel-padded 256 below).
@@ -806,6 +855,14 @@ def phase_kernels():
         "score_poses_3d3d_quad_fused": check_quad(T, pp, qq),
         "score_poses_3d3d": check_exact(T, pp, qq),
     })
+    # K3's two layouts (one pose a block up to K = 1024, pose-stationary
+    # above) at N = 3001: more than one 256-row tile, and not a multiple of
+    # one; K = 2000 is not a multiple of a block's 32 P poses. Then K = N = 1.
+    _, pr, qr, Tr = hypotheses(16, 2000, 3001)
+    pr, qr = pr[:3001].contiguous(), qr[:3001].contiguous()
+    for k in (1000, 2000):
+        checks.append({"shape": f"K={k} N=3001", "score_poses_3d3d": check_exact(Tr[:k], pr, qr)})
+    checks.append({"shape": "K=1 N=1", "score_poses_3d3d": check_exact(Tr[:1], pr[:1], qr[:1])})
 
     # Main-path shapes.
     idx, p, q, T = hypotheses(12, K, N)
@@ -864,6 +921,11 @@ def phase_kernels():
             "replaces": "rgbd_pose_estimation_tpu/ops/ransac_score.py:107",
             "shape": f"K={top} finalists",
             "ms": time_ms(lambda: rs._score_packed(packed_top, p, q, TAU)),
+            "device_ms_alone": device_ms_alone(
+                "score_poses_3d3d", lambda: rs._score_packed(packed_top, p, q, TAU)),
+            # The floor of its launch: as many blocks that do nothing.
+            "empty_kernel_device_ms": device_ms_alone(
+                "empty_kernel", lambda: ceilings.empty_kernel(top)),
             "plain_ms": time_ms(lambda: rs._score_packed_reference(packed_top, p, q, TAU)),
             "library_ms": None,
             "bytes": 4 * (12 * top + 6 * N + 2 * top),
@@ -890,6 +952,8 @@ def phase_kernels():
     # The exact scorer over all K (impl="exact"): not on the main path.
     exact_all = {
         "ms": time_ms(lambda: rs.score_poses_3d3d(T, p, q, TAU), inner=1),
+        "device_ms_alone": device_ms_alone(
+            "score_poses_3d3d", lambda: rs.score_poses_3d3d(T, p, q, TAU)),
         "plain_ms": time_ms(
             lambda: chunked(lambda t: rs.score_poses_3d3d_reference(t, p, q, TAU), T),
             reps=20, inner=1, warmup=1,
@@ -902,7 +966,17 @@ def phase_kernels():
          main_path_shapes=records, score_poses_3d3d_all_K=exact_all,
          icp_jtj_jtr_by_size=icp_by_size, icp_assoc_jtj_jtr_by_size=assoc_by_size,
          score_poses_2d3d_large=s2d_large)
-    return records
+    finalists = next(r for r in records if r["name"] == "score_poses_3d3d")
+    exact_rows = [
+        {"row": f"K3 K={top} finalists x N={N}", "device_ms": finalists["device_ms_alone"],
+         "ops": 23 * top * N},
+        {"row": f"K3 K={K} x N={N}", "device_ms": exact_all["device_ms_alone"], "ops": 23 * K * N},
+        {"row": f"K5 K={4 * K2D} x N={N2D}", "device_ms": s2d_record["device_ms_alone"],
+         "ops": 26 * 4 * K2D * N2D},
+        {"row": f"K5 K={4 * K2D_LARGE} x N={N}", "device_ms": s2d_large["device_ms_alone"],
+         "ops": 26 * 4 * K2D_LARGE * N},
+    ]
+    return records, exact_rows
 
 
 # ---------------------------------------------------------------------------
@@ -1320,16 +1394,17 @@ DEVICE_NAMES = {
     "minimal_moments": ("minimal_moments_kernel",),
     "score_poses_3d3d_quad_fused": ("quad_bf16_mma_kernel",),
     "quad_fused_cuda_cores": ("quad_score_kernel",),
-    "score_poses_3d3d": ("score3d_kernel",),
+    "score_poses_3d3d": ("Residual3D3D",),
     "icp_jtj_jtr": ("icp_jtj_partial_kernel", "icp_jtj_finish_kernel"),
     "icp_assoc_jtj_jtr": ("icp_assoc_kernel",),
-    "score_poses_2d3d": ("score2d_kernel",),
-    "variant_A": ("score3d_kernel",),
+    "score_poses_2d3d": ("Residual2D3D",),
+    "variant_A": ("Residual3D3D",),
     "variant_C": ("quad_score_kernel",),
     "variant_M": ("quad_mma_kernel",),
     "variant_E_ceiling": ("op_mix_kernel",),
-    "variant_D": ("score3d_kernel",),
+    "variant_D": ("Residual3D3D",),
     "ceiling_vpu": ("fma_chain_kernel",),
+    "empty_kernel": ("empty_kernel",),
 }
 
 
@@ -1582,7 +1657,7 @@ def check_quad_variant(m, c, feat, pn, what, chunk=4096):
 
 
 def msac_variant_checks(T, p, q, label):
-    """T1 at every poses-per-block, T5, T2 and T3 against their plain
+    """T1 and T5 at every poses-per-thread, T2 and T3 against their plain
     versions (and T2, T3 with their plain versions against float64) on one
     problem. Returns (check record, max |kernel - plain| by record name)."""
     from rgbd_pose_estimation_tpu_torch.ops import msac_variants as mv
@@ -1591,16 +1666,15 @@ def msac_variant_checks(T, p, q, label):
     feat, pn = rs._quad_features(T, p, q)
     m_ref, c_ref = chunked(lambda t: mv.variant_A_reference(t, p, q, TAU), P)
     check, err = {"shape": label}, {}
-    for b in mv.POSES_PER_BLOCK:
-        m, c = mv.variant_A(P, p, q, TAU, poses_per_block=b)
-        again = mv.variant_A(P, p, q, TAU, poses_per_block=b)
+    for P_ in mv.POSES_PER_THREAD:
+        m, c = mv.variant_A(P, p, q, TAU, poses_per_thread=P_)
+        again = mv.variant_A(P, p, q, TAU, poses_per_thread=P_)
         torch.cuda.synchronize()
         if not (torch.equal(m.view(torch.int32), again[0].view(torch.int32)) and torch.equal(c, again[1])):
-            raise AssertionError(f"variant_A poses/block={b}: two runs differ")
-        err[f"variant_A[{b}]"] = check_direct_variant(m, c, m_ref, c_ref, f"variant_A {label} b={b}")
-    for b in (1, 8, 16):
-        d = mv.variant_D(P, p, q, TAU, poses_per_block=b)
-        err[f"variant_D[{b}]"] = check_direct_variant(d, None, m_ref, None, f"variant_D {label} b={b}")
+            raise AssertionError(f"variant_A poses/thread={P_}: two runs differ")
+        err[f"variant_A[{P_}]"] = check_direct_variant(m, c, m_ref, c_ref, f"variant_A {label} P={P_}")
+        d = mv.variant_D(P, p, q, TAU, poses_per_thread=P_)
+        err[f"variant_D[{P_}]"] = check_direct_variant(d, None, m_ref, None, f"variant_D {label} P={P_}")
     for name, kernel, plain in (("variant_C", mv.quad_C, mv.quad_C_reference),
                                 ("variant_M", mv.quad_M, mv.quad_M_reference)):
         m, c = kernel(feat, pn, TAU)
@@ -1643,7 +1717,7 @@ def probe_checks():
 
 def harness_records(T, p, q, err):
     """The kernels-line records of T1-T6 at the harness's shapes: K = 32768
-    poses x N = 2048 (T1 and T5 at 8 poses a block), T4 at (8, 2048) x 64
+    poses x N = 2048 (T1 and T5 at K3's poses a thread), T4 at (8, 2048) x 64
     iterations, T6 at (32768, 128). ``ms`` by CUDA events around the
     wrapper (T2, T3 on prebuilt features, as K2's record), ``device_ms`` the
     kernel alone under the profiler."""
@@ -1661,7 +1735,8 @@ def harness_records(T, p, q, err):
         # name: (call, plain, library, bytes, op seconds, shape)
         "variant_A": (lambda: mv.variant_A(P, p, q, TAU),
                       lambda: chunked(lambda t: mv.variant_A_reference(t, p, q, TAU), P),
-                      None, 4 * (14 * k + 6 * n), 23 * k * n / f32, f"K={k} N={n}, 8 poses a block"),
+                      None, 4 * (14 * k + 6 * n), 23 * k * n / f32,
+                      f"K={k} N={n}, {mv.K3_POSES_PER_THREAD} poses a thread"),
         "variant_C": (lambda: mv.quad_C(feat, pn, TAU),
                       lambda: chunked(lambda f: mv.quad_C_reference(f, pn, TAU), feat),
                       lambda: mv.variant_X(T, p, q, TAU, precision="highest"),
@@ -1676,7 +1751,8 @@ def harness_records(T, p, q, err):
                               None, 2 * 4 * x4.numel(), 23 * 64 * x4.numel() / f32, "(8, 2048), 64 iterations"),
         "variant_D": (lambda: mv.variant_D(P, p, q, TAU),
                       lambda: chunked(lambda t: mv.variant_D_reference(t, p, q, TAU), P),
-                      None, 4 * (13 * k + 6 * n), 20 * k * n / f32, f"K={k} N={n}, 8 poses a block"),
+                      None, 4 * (13 * k + 6 * n), 20 * k * n / f32,
+                      f"K={k} N={n}, {mv.K3_POSES_PER_THREAD} poses a thread"),
         "ceiling_vpu": (lambda: ceilings.fma_chain(x6), lambda: ceilings.fma_chain_reference(x6),
                         None, 2 * 4 * x6.numel(), 2 * 256 * x6.numel() / f32, "(32768, 128)"),
     }
@@ -1701,27 +1777,37 @@ def harness_records(T, p, q, err):
 
 def phase_msac_opt():
     """The measurement harness on the card. First its kernels against their
-    plain versions: T1 (every poses-per-block), T5, T2 and T3 at K = 32768
-    hypotheses x N = 2048 bench correspondences (a NaN pose among them), at
-    K = 1000 x N = 200 and with 56 pad-sentinel rows (N = 256); T4 and T6
-    exactly. Then the harness itself, through its own entry points, with the
+    plain versions: T1 and T5 (every poses-per-thread), T2 and T3 at K =
+    32768 hypotheses x N = 2048 bench correspondences (a NaN pose among
+    them), at K = 1000 x N = 200, with 56 pad-sentinel rows (N = 256) and at
+    N = 3001 (tiles of 256 rows, the last one ragged); T4 and T6 exactly.
+    Then the harness itself, through its own entry points, with the
     counters set to 0 just before: the msac timing table at K = 4096 and
     32768 x N = 2048 (tools/msac_opt.py) and the four measured ceilings plus
     the T4 op-mix ceiling (tools/roofline.py). Each of T1-T6 must be
     launched there (counted once per capture into the timing graphs).
-    Returns the T1-T6 records of the kernels line."""
+    Returns the T1-T6 records of the kernels line, T1's device time at every
+    poses-per-thread, and the measured FMA ceiling (TFLOP/s)."""
     from rgbd_pose_estimation_tpu_torch.tools import msac_opt, roofline
 
     _, pp, qq, Tr = hypotheses(11, 1000, 200)
     checks = [msac_variant_checks(Tr, pp[:200].contiguous(), qq[:200].contiguous(), "K=1000 N=200")[0],
               msac_variant_checks(Tr, pp, qq, "K=1000 N=256 (56 pad sentinels)")[0]]
+    _, pr, qr, Tr = hypotheses(16, 1000, 3001)
+    checks.append(msac_variant_checks(Tr, pr[:3001].contiguous(), qr[:3001].contiguous(), "K=1000 N=3001")[0])
     _, p, q, T = hypotheses(12, K, N)
     main_check, err = msac_variant_checks(T, p, q, f"K={K} N={N}")
     checks.append(main_check)
-    err = {"variant_A": err["variant_A[8]"], "variant_D": err["variant_D[8]"],
+    err = {"variant_A": err[f"variant_A[{mv.K3_POSES_PER_THREAD}]"],
+           "variant_D": err[f"variant_D[{mv.K3_POSES_PER_THREAD}]"],
            "variant_C": err["variant_C"], "variant_M": err["variant_M"]}
     checks += probe_checks()
     records = harness_records(T, p, q, err)
+    P = rs.pack_poses(T)
+    t1_device_ms = {
+        P_: device_ms_alone("variant_A", lambda P_=P_: mv.variant_A(P, p, q, TAU, poses_per_thread=P_))
+        for P_ in mv.POSES_PER_THREAD
+    }
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1749,8 +1835,33 @@ def phase_msac_opt():
                            for name, s in rows.items()}
                  for kk, rows in table.items()},
          launches={rec["name"]: rec["launches"] for rec in records},
+         variant_A_device_ms_by_poses_per_thread=t1_device_ms,
          parity_K4096=msac_opt.parity(*msac_opt.problem(4096)))
-    return records
+    return records, t1_device_ms, fma
+
+
+def phase_exact_msac(rows, harness, t1_device_ms, fma_tflops):
+    """The exact MSAC scorers of msac_exact.cuh side by side (K3, K5, T1 at
+    every poses-per-thread, T5), each alone on the device: its time, its
+    bound (operations at the published f32 peak), and the share of the bound
+    and of this run's measured f32 FMA ceiling (T6) that the reference's
+    operation count over that time reaches. Beside them what the compiler
+    made of each instance's inner loop: registers, spills and SASS
+    instructions a pose-correspondence pair (``tools/roofline.py``)."""
+    from rgbd_pose_estimation_tpu_torch.tools import roofline
+
+    t5 = next(r for r in harness if r["name"] == "variant_D")
+    rows = rows + [
+        {"row": f"T1 K={K} x N={N}, {P_} poses a thread", "device_ms": ms, "ops": 23 * K * N}
+        for P_, ms in t1_device_ms.items()
+    ] + [{"row": f"T5 K={K} x N={N}, {mv.K3_POSES_PER_THREAD} poses a thread",
+          "device_ms": t5["device_ms"], "ops": 20 * K * N}]
+    for r in rows:
+        ms = r["device_ms"]
+        r["bound_ms"] = r["ops"] / PEAK_F32_FLOPS * 1e3
+        r["share_of_bound"] = None if ms is None else r["bound_ms"] / ms
+        r["share_of_fma_ceiling"] = None if ms is None else r["ops"] / (ms * 1e9) / fma_tflops
+    emit("exact_msac", fma_ceiling_tflops=fma_tflops, rows=rows, sass=roofline.audit_exact_sass())
 
 
 def main():
@@ -1768,7 +1879,7 @@ def main():
     _build.library()
     emit("build", seconds=time.perf_counter() - t0)
 
-    records = phase_kernels()
+    records, exact_rows = phase_kernels()
     counts, (p, q, T_gt) = phase_estimate()
     counts_2d3d, (pts, obs, _, ms_2d3d) = phase_estimate_2d3d()
     track_ms, k4_counts = phase_icp_track()
@@ -1789,7 +1900,9 @@ def main():
         if rec["launches"] < 1:
             raise AssertionError(f"{rec['name']} was not launched by the main path")
     # T1-T6: launches of the harness phase, counted from zero there.
-    records += phase_msac_opt()
+    harness, t1_device_ms, fma = phase_msac_opt()
+    records += harness
+    phase_exact_msac(exact_rows, harness, t1_device_ms, fma)
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({

@@ -52,18 +52,22 @@ _SIGNATURES = {
     # The measurement harness's kernels (tools/msac_opt.py, tools/roofline.py).
     # K2's first design, on the CUDA cores: feat, pn, out, K, N, tau2
     "quad_fused_cuda_cores": [_P, _P, _P, _I, _I, _F, _P],
-    # poses, p, q, msac, count, K, N, tau2, poses_per_block
+    # poses, p, q, msac, count, K, N, tau2, poses_per_thread
     "msac_variant_a": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     # feat, pn, msac, count, K, N, tau2
     "msac_variant_c": [_P, _P, _P, _P, _I, _I, _F, _P],
     # feat, pn, msac, count, K, N, tau2
     "msac_variant_m": [_P, _P, _P, _P, _I, _I, _F, _P],
-    # poses, p, q, msac, K, N, tau2, poses_per_block
+    # poses, p, q, msac, K, N, tau2, poses_per_thread
     "msac_variant_d": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    # first, count (bits of floats), per_block, blocks: K5's reciprocal vs 1.f / x
+    "msac_reciprocal_check": [ctypes.c_uint, ctypes.c_uint, _P, _I, _P],
     # x, cs, out, R, N, reps, tau2
     "msac_op_mix_ceiling": [_P, _P, _P, _I, _I, _I, _F, _P],
     # x, out, n, s, b
     "fma_chain_ceiling": [_P, _P, _I, _F, _F, _P],
+    # blocks: a kernel that does nothing, the floor of a launch
+    "empty_kernel": [_I, _P],
 }
 
 _lib = None

@@ -11,6 +11,9 @@ reference's accounting:
 - :func:`fma_chain` (T6, ``tools/roofline.py::ceiling_vpu``) — 256 chained
   fused multiply-adds an element; 2·256 flops an element.
 
+Beside them :func:`empty_kernel`, a kernel that does nothing: the floor of
+a launch, timed beside the kernels that are bound by theirs.
+
 For CUDA tensors each launches its kernel or raises; the plain versions
 (``*_reference``) serve CPU tensors only and give the kernels' exact bits.
 """
@@ -98,3 +101,12 @@ def fma_chain_reference(x: torch.Tensor) -> torch.Tensor:
     for _ in range(FMA_REPS):
         a = a * FMA_SCALE + FMA_SHIFT
     return a
+
+
+def empty_kernel(blocks: int) -> None:
+    """Launch ``blocks`` blocks of 256 threads that do nothing, on the
+    current CUDA stream. There is nothing to compute, so there is no plain
+    version: without a card it raises."""
+    if blocks < 1:
+        raise ValueError(f"empty_kernel: blocks must be >= 1, got {blocks}")
+    _build.launch("empty_kernel", blocks)

@@ -7,8 +7,9 @@ returns per pose ``Σ_n min(e_kn, τ²)`` and, except D, the inlier count
 ``Σ_n [e_kn < τ²]``:
 
 - :func:`variant_A` (T1) — the exact scorer's function,
-  e = |R p + t − q|², on K3's kernel (``csrc/msac_variants.cu``) with the
-  poses a block scores as an argument, the counterpart of the TPU tool's KT
+  e = |R p + t − q|², on K3's pose-stationary kernel
+  (``csrc/msac_exact.cuh``, entry in ``csrc/msac_variants.cu``) with the
+  poses a thread holds as an argument, the counterpart of the TPU tool's KT
   sweep;
 - :func:`variant_D` (T5) — A without the count;
 - :func:`variant_C` (T2) — the 17-term quad form e = feat_k · pn_n of
@@ -47,7 +48,10 @@ from rgbd_pose_estimation_tpu_torch.ops.ransac_score import (
     pack_poses,
 )
 
-POSES_PER_BLOCK = (1, 2, 4, 8, 16)
+POSES_PER_THREAD = (1, 2, 4)
+# K3's own choice at the harness's K = 32768 (csrc/msac_exact.cuh,
+# estimator_poses_per_thread).
+K3_POSES_PER_THREAD = 4
 
 
 def _check_poses(name, poses, p, q):
@@ -61,9 +65,9 @@ def _check_poses(name, poses, p, q):
     return K, N
 
 
-def _check_poses_per_block(poses_per_block: int) -> None:
-    if poses_per_block not in POSES_PER_BLOCK:
-        raise ValueError(f"poses_per_block must be one of {POSES_PER_BLOCK}, got {poses_per_block}")
+def _check_poses_per_thread(poses_per_thread: int) -> None:
+    if poses_per_thread not in POSES_PER_THREAD:
+        raise ValueError(f"poses_per_thread must be one of {POSES_PER_THREAD}, got {poses_per_thread}")
 
 
 def _packed(T):
@@ -71,11 +75,12 @@ def _packed(T):
     return T if T.dim() == 2 else pack_poses(T)
 
 
-def variant_A(T, p, q, tau: float, poses_per_block: int = 8):
+def variant_A(T, p, q, tau: float, poses_per_thread: int = K3_POSES_PER_THREAD):
     """T1: exact f32 MSAC score and inlier count, both ``(K,)``, with
-    ``poses_per_block`` poses scored by each block of 256 threads. ``T`` is
-    ``(K, 4, 4)`` or packed ``(K, 12)`` (``pack_poses``)."""
-    _check_poses_per_block(poses_per_block)
+    ``poses_per_thread`` (P) poses in the registers of each thread: a
+    block of 256 threads scores 32·P poses. ``T`` is ``(K, 4, 4)`` or packed
+    ``(K, 12)`` (``pack_poses``)."""
+    _check_poses_per_thread(poses_per_thread)
     poses = _packed(T)
     if not poses.is_cuda:
         return variant_A_reference(T, p, q, tau)
@@ -84,7 +89,7 @@ def variant_A(T, p, q, tau: float, poses_per_block: int = 8):
     count = torch.empty((K,), dtype=torch.float32, device=poses.device)
     _build.launch(
         "msac_variant_a", poses.data_ptr(), p.data_ptr(), q.data_ptr(),
-        msac.data_ptr(), count.data_ptr(), K, N, float(tau) ** 2, poses_per_block,
+        msac.data_ptr(), count.data_ptr(), K, N, float(tau) ** 2, poses_per_thread,
     )
     return msac, count
 
@@ -94,9 +99,9 @@ def variant_A_reference(T, p, q, tau: float):
     return _score_packed_reference(_packed(T), p, q, tau)
 
 
-def variant_D(T, p, q, tau: float, poses_per_block: int = 8):
+def variant_D(T, p, q, tau: float, poses_per_thread: int = K3_POSES_PER_THREAD):
     """T5: :func:`variant_A`'s score alone, ``(K,)``."""
-    _check_poses_per_block(poses_per_block)
+    _check_poses_per_thread(poses_per_thread)
     poses = _packed(T)
     if not poses.is_cuda:
         return variant_D_reference(T, p, q, tau)
@@ -104,7 +109,7 @@ def variant_D(T, p, q, tau: float, poses_per_block: int = 8):
     msac = torch.empty((K,), dtype=torch.float32, device=poses.device)
     _build.launch(
         "msac_variant_d", poses.data_ptr(), p.data_ptr(), q.data_ptr(),
-        msac.data_ptr(), K, N, float(tau) ** 2, poses_per_block,
+        msac.data_ptr(), K, N, float(tau) ** 2, poses_per_thread,
     )
     return msac
 

@@ -4,8 +4,8 @@ Counterpart of the JAX package's ``ops/ransac_score.py``. Three scorers and
 the selector built on the first two:
 
 - :func:`score_poses_3d3d` — exact f32 MSAC score and inlier count per pose
-  (CUDA kernel ``csrc/score3d.cu``, replacing the Pallas kernel
-  ``_score3d_kernel``);
+  (CUDA kernel ``csrc/score3d.cu`` on the header ``csrc/msac_exact.cuh``,
+  replacing the Pallas kernel ``_score3d_kernel``);
 - :func:`score_poses_3d3d_quad_fused` — fast MSAC ranking through the
   17-term bilinear form with bf16-rounded operands (CUDA kernel
   ``csrc/quad_bf16_mma.cu``, on the tensor cores, replacing the Pallas kernel
@@ -14,7 +14,8 @@ the selector built on the first two:
   finalists, argmin;
 - :func:`score_poses_2d3d` — MSAC score and inlier count per world→camera
   pose against (3D point, normalized-2D observation) pairs (CUDA kernel
-  ``csrc/score2d.cu``, replacing the Pallas kernel ``_score2d_kernel``).
+  ``csrc/score2d.cu``, the same header with the 2D-3D residual, replacing
+  the Pallas kernel ``_score2d_kernel``).
 
 In the JAX package the fast ranking of ``best_pose_3d3d`` is a plain matrix
 product whose clip-and-sum epilogue the XLA compiler fuses. PyTorch has no

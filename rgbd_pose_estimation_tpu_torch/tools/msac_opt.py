@@ -11,7 +11,7 @@ Counterpart of the JAX repository's ``tools/msac_opt.py``. It prints:
   (the quad form assumes |R p| = |p|; other poses make C and M differ from
   A by design);
 - the timing table at K = 4096 and 32768 poses × N = 2048 correspondences:
-  A (T1) at every poses-per-block, C, D (T5), M, X and X-highest, in µs, in
+  A (T1) at every poses-per-thread, C, D (T5), M, X and X-highest, in µs, in
   TFLOP/s at the exact scorer's accounting of 23·K·N flops, and as a share
   of the measured multiply-add ceiling.
 
@@ -38,7 +38,8 @@ import torch
 from rgbd_pose_estimation_tpu_torch.core.lie import se3_exp
 from rgbd_pose_estimation_tpu_torch.ops import ceilings
 from rgbd_pose_estimation_tpu_torch.ops.msac_variants import (
-    POSES_PER_BLOCK,
+    K3_POSES_PER_THREAD,
+    POSES_PER_THREAD,
     quad_C,
     quad_M,
     quad_X,
@@ -129,11 +130,11 @@ def timing_rows(T, p, q, tau: float = TAU):
 
         return step, feat
 
-    rows = [(f"A poses/block={b}" + (" (K3's large-K choice)" if b == 8 else ""),
-             *on_poses(variant_A, poses_per_block=b)) for b in POSES_PER_BLOCK]
+    rows = [(f"A poses/thread={P}" + (" (K3's large-K choice)" if P == K3_POSES_PER_THREAD else ""),
+             *on_poses(variant_A, poses_per_thread=P)) for P in POSES_PER_THREAD]
     rows += [
         ("C quad f32, CUDA cores", *on_features(quad_C)),
-        ("D no count, poses/block=8", *on_poses(variant_D)),
+        (f"D no count, poses/thread={K3_POSES_PER_THREAD}", *on_poses(variant_D)),
         ("M quad 3xTF32, tensor cores", *on_features(quad_M)),
         ("X library bf16 torch.matmul", *on_features(quad_X)),
         ("X-highest library f32 torch.matmul, TF32 off", *on_features(quad_X, precision="highest")),

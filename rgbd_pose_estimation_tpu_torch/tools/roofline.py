@@ -11,7 +11,9 @@ layers:
 2. **Audits** — the port's kernels and paths against those ceilings: the
    exact MSAC scorer K3, the ICP accumulation K4, one dense-ICP
    Gauss-Newton step, a whole track, and the stage anatomy of the 3D-3D and
-   2D-3D RANSAC estimates.
+   2D-3D RANSAC estimates; and what the compiler made of the exact MSAC
+   scorers' inner loop (:func:`audit_exact_sass`: registers, spills, SASS
+   instructions a pose-correspondence pair).
 
 Timing protocol — **graph-chained**: :func:`timeit_chain` records n chained
 calls of a step into one CUDA graph and times replays of it with CUDA
@@ -42,8 +44,11 @@ Run on a machine with one CUDA card:
 from __future__ import annotations
 
 import math
+import os
+import re
 import statistics
 import subprocess
+import tempfile
 
 import torch
 
@@ -291,6 +296,110 @@ def audit_msac(K: int = 4096, N: int = 2048):
         "flops": 23 * K * N,
         "bytes": 4 * (12 * K + 6 * N + 2 * K),  # no (K, N) in memory
     }
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_SASS_FUNCTION = re.compile(r"Function : (\w+)")
+_SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_SASS_BRANCH = re.compile(r"\bBRA 0x([0-9a-f]+)")
+# pose_kernel<Residual, P, kCount>, mangled
+_POSE_KERNEL = re.compile(r"pose_kernelINS0_12Residual(\w+?)ELi(\d+)ELb([01])E")
+
+
+def _sass_functions(sass: str) -> dict:
+    """Mangled kernel name → [(address, instruction)] of ``cuobjdump -sass``."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        f = _SASS_FUNCTION.search(line)
+        if f:
+            cur = out.setdefault(f.group(1), [])
+        elif cur is not None:
+            i = _SASS_INSTRUCTION.search(line)
+            if i:
+                cur.append((int(i.group(1), 16), i.group(2).strip()))
+    return out
+
+
+def _hot_loop(instructions):
+    """The innermost loop (a backward branch whose range holds no other)
+    with the most FFMA: the instructions of its fast path, without NOPs and
+    without the blocks that a forward branch inside the loop jumps over when
+    they hold a CALL (the IEEE division's slow paths, which only depths of
+    2^126 and more take)."""
+    loops, forward = [], []
+    for addr, ins in instructions:
+        b = _SASS_BRANCH.search(ins)
+        if b:
+            target = int(b.group(1), 16)
+            (loops if target < addr else forward).append((min(target, addr), max(target, addr)))
+    inner = [(lo, hi) for lo, hi in loops
+             if not any((lo, hi) != (lo2, hi2) and lo <= lo2 and hi2 <= hi for lo2, hi2 in loops)]
+    best = []
+    for lo, hi in inner:
+        slow = [(a, t) for a, t in forward if lo <= a and t <= hi and any(
+            a < a2 < t and i.startswith("CALL") for a2, i in instructions)]
+        body = [ins for addr, ins in instructions
+                if lo <= addr <= hi and not ins.startswith("NOP")
+                and not any(a < addr < t for a, t in slow)]
+        if sum("FFMA" in ins for ins in body) > sum("FFMA" in ins for ins in best):
+            best = body
+    return best
+
+
+def audit_exact_sass() -> list:
+    """What the compiler made of the pose-stationary kernels of
+    ``ops/csrc/msac_exact.cuh`` (K3, K5, T1 and T5): for each instance, its
+    registers a thread and spilled bytes (``ptxas -v``) and the SASS
+    instructions a (pose, correspondence) pair in its hot loop
+    (``cuobjdump -sass``): the innermost loop with the most FFMA, its
+    instructions over its rows (one ``LDS.128`` each) times the kernel's P.
+    Compiles the three sources anew with the package's flags into a
+    temporary directory under the build directory; needs ``nvcc`` and
+    ``cuobjdump``, no card."""
+    from rgbd_pose_estimation_tpu_torch.ops import _build
+
+    nvcc = _build._find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    owner = {("score3d", "1"): "K3", ("score2d", "1"): "K5",
+             ("msac_variants", "1"): "T1", ("msac_variants", "0"): "T5"}
+    rows = []
+    _build._BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD) as tmp:
+        for stem in ("score3d", "score2d", "msac_variants"):
+            cubin = os.path.join(tmp, stem + ".cubin")
+            built = subprocess.run(
+                [nvcc, *_build._NVCC_FLAGS, "-Xptxas", "-v", "-cubin", "-o", cubin,
+                 str(_build._CSRC / (stem + ".cu"))],
+                capture_output=True, text=True, check=True)
+            regs, name = {}, None
+            for line in (built.stdout + built.stderr).splitlines():
+                if _PTXAS_ENTRY.search(line):
+                    name = _PTXAS_ENTRY.search(line).group(1)
+                elif name and _PTXAS_SPILL.search(line):
+                    m = _PTXAS_SPILL.search(line)
+                    regs.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+                elif name and _PTXAS_REGS.search(line):
+                    regs.setdefault(name, {})["registers"] = int(_PTXAS_REGS.search(line).group(1))
+            sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
+                                  check=True).stdout
+            for fn, instructions in _sass_functions(sass).items():
+                k = _POSE_KERNEL.search(fn)
+                if not k:
+                    continue
+                P = int(k.group(2))
+                loop = _hot_loop(instructions)
+                loop_rows = sum(ins.startswith("LDS.128") for ins in loop)
+                rows.append({
+                    "kernel": owner[(stem, k.group(3))], "residual": k.group(1), "P": P,
+                    "count": k.group(3) == "1", **regs.get(fn, {}),
+                    "loop_instructions": len(loop), "loop_rows": loop_rows,
+                    "instructions_a_pair": len(loop) / (loop_rows * P) if loop_rows else None,
+                })
+    if not rows:
+        raise RuntimeError("audit_exact_sass: no pose_kernel instance found in the SASS")
+    return sorted(rows, key=lambda r: (r["kernel"], r["P"]))
 
 
 def audit_jtj(S: int = 2432):
@@ -652,6 +761,15 @@ def main():
         gb = a["bytes"] / a["s_kernel"] / 1e9
         print(f"| {a['name']} | {a['s_kernel'] * 1e6:.1f} us | {a['s_plain'] / a['s_kernel']:.2f}x "
               f"| {gf:.0f} | {gf / 1e3 / vpu * 100:.1f}% | {gb:.0f} | {gb / hbm * 100:.1f}% |", flush=True)
+
+    print("\n## Exact MSAC scorers' inner loop (pose-stationary instances of msac_exact.cuh)\n")
+    print("| kernel | residual | P | count | registers | spilled bytes | SASS a pair (loop / rows x P) |")
+    print("|---|---|---|---|---|---|---|")
+    for r in audit_exact_sass():
+        a_pair = "—" if r["instructions_a_pair"] is None else f"{r['instructions_a_pair']:.2f}"
+        print(f"| {r['kernel']} | {r['residual']} | {r['P']} | {r['count']} | {r.get('registers')} "
+              f"| {r.get('spill_bytes')} | {a_pair} ({r['loop_instructions']} / {r['loop_rows']} x {r['P']}) |",
+              flush=True)
 
     icp = audit_icp_step()
     print("\n## ICP finest-level Gauss-Newton step (640x480, graph)\n")

@@ -138,7 +138,7 @@ def test_library_route_bf16_and_arguments(problem):
     """variant_X with bf16 operands: an entry carries three bf16
     roundings (two operands and the bf16 product, 2^-8 each) of its terms'
     scale; outside a band of 2^-6 of that scale around tau^2 its count is
-    the exact one. Unknown precisions and poses-per-block values raise."""
+    the exact one. Unknown precisions and poses-per-thread values raise."""
     T, p, q = problem
     m, c = mv.variant_X(*_t(T, p, q), TAU)
     e64, scale = _quad_f64(T, p, q)
@@ -148,25 +148,40 @@ def test_library_route_bf16_and_arguments(problem):
     with pytest.raises(ValueError, match="precision"):
         mv.variant_X(*_t(T, p, q), TAU, precision="high")
     for fn in (mv.variant_A, mv.variant_D):
-        with pytest.raises(ValueError, match="poses_per_block"):
-            fn(*_t(T, p, q), TAU, poses_per_block=3)
+        with pytest.raises(ValueError, match="poses_per_thread"):
+            fn(*_t(T, p, q), TAU, poses_per_thread=3)
 
 
 def test_kernel_sources_keep_their_contracts():
     """Nothing compiles here, so this reads the sources: T3 multiplies on
     the tensor cores in TF32 with three passes (3xTF32); K2 and T2 are one
-    kernel with K2's flags unchanged; T1 and T5 share K3's template; no
-    floating-point atomics and no fminf (which would drop NaN)."""
+    kernel with K2's flags unchanged; K3, K5, T1 and T5 are instances of the
+    one exact-MSAC header, and score2d.cu has no kernel of its own; no
+    floating-point atomics and no fminf (which would drop NaN); the 2D-3D
+    division is IEEE (no __fdividef, and the compiler's division wherever the
+    reciprocal's fast path is not exact)."""
     src = {p.name: p.read_text() for p in _build._CSRC.glob("*.cu*")}
     mma = src["quad_mma.cu"]
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in mma
     assert mma.count("mma_tf32(d, a_") == 3  # lo*hi, hi*lo, hi*hi
     assert "quad_score_kernel<true, true, false>" in src["quad_score.cu"]
     assert "quad_score_kernel<false, false, true>" in src["quad_score.cu"]
-    assert '#include "score3d.cuh"' in src["score3d.cu"] and '#include "score3d.cuh"' in src["msac_variants.cu"]
-    for name in ("quad_mma.cu", "msac_variants.cu", "score3d.cuh", "ceilings.cu"):
+    assert "score3d.cuh" not in src
+    for name in ("score3d.cu", "score2d.cu", "msac_variants.cu"):
+        assert '#include "msac_exact.cuh"' in src[name], name
+    assert "__global__" not in src["score3d.cu"] + src["score2d.cu"]
+    # msac_variants.cu's one kernel of its own checks K5's reciprocal.
+    assert src["msac_variants.cu"].count("__global__") == 1
+    assert "reciprocal_check_kernel(" in src["msac_variants.cu"]
+    assert "Residual3D3D" in src["score3d.cu"] and "Residual2D3D" in src["score2d.cu"]
+    assert src["msac_variants.cu"].count("launch_poses<msac_exact::Residual3D3D") == 2
+    for name in ("quad_mma.cu", "msac_variants.cu", "msac_exact.cuh", "ceilings.cu", "score2d.cu"):
         code = src[name].split("#include", 1)[1]
         assert "atomicAdd" not in code and "fminf" not in code, name
+    for name in ("msac_exact.cuh", "score2d.cu"):
+        assert "__fdividef" not in src[name].split("#include", 1)[1], name
+    assert "iz[g] = 1.f / z[g]" in src["msac_exact.cuh"]  # the division where rcp_rn_normal is not exact
+    assert "use_fast_math" not in " ".join(_build._NVCC_FLAGS)
     assert {"msac_variant_a", "msac_variant_c", "msac_variant_m", "msac_variant_d"} <= set(_build._SIGNATURES)
 
 
