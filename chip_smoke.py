@@ -210,13 +210,31 @@ def assert_close(out, ref, rtol, atol, what):
 
 
 def check_moments(idx, p, q):
-    """K1. rtol 1e-6 / atol 1e-6: m = 3 addends; kernel and plain version
-    round the products and add in the same order, so 0 is expected."""
+    """K1 bit for bit: kernel and plain version round the products and add
+    them in the same order, starting from the sample's first row."""
     out = minimal_moments(idx, p, q)
     ref = minimal_moments_reference(idx, p, q)
     torch.cuda.synchronize()
-    assert_close(out, ref, 1e-6, 1e-6, "minimal_moments")
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"minimal_moments {tuple(idx.shape)}: not the plain version's bits")
     return max_abs_err(out, ref)
+
+
+# Sample sizes K1 is checked at: its instances m = 1..8 (the engines use 3)
+# and, above them, the chunked one (m = 11: a chunk of 8 and one of 3).
+MOMENTS_M = (1, 2, 3, 4, 5, 8, 11)
+K1_THREADS = 128  # threads a block of moments.cu
+
+
+def check_moments_by_m(k=1000, n=200):
+    """K1 at every checked sample size m, at a ragged K, bit for bit."""
+    g = generator(21)
+    p = torch.randn((n, 3), generator=g, device=DEV)
+    q = torch.randn((n, 3), generator=g, device=DEV)
+    for m in MOMENTS_M:
+        idx = torch.rand((k, n), generator=g, device=DEV).argsort(dim=1)[:, :m]
+        check_moments(idx.to(torch.int32).contiguous(), p, q)
+    return {"K": k, "N": n, "m": list(MOMENTS_M), "bit_equal": True}
 
 
 def quad_scores_f64(feat, pn):
@@ -847,6 +865,7 @@ def phase_kernels():
     checks.append({
         "shape": "K=1000 N=200",
         "minimal_moments": check_moments(idx, pp[:200].contiguous(), qq[:200].contiguous()),
+        "minimal_moments by m": check_moments_by_m(),
         "score_poses_3d3d_quad_fused": check_quad(T, pp[:200].contiguous(), qq[:200].contiguous()),
         "score_poses_3d3d": check_exact(T, pp[:200].contiguous(), qq[:200].contiguous()),
     })
@@ -888,6 +907,10 @@ def phase_kernels():
             "source": "rgbd_pose_estimation_tpu_torch/ops/csrc/moments.cu",
             "replaces": "rgbd_pose_estimation_tpu/ops/moments.py:110",
             "ms": time_ms(lambda: minimal_moments(idx, p, q)),
+            "device_ms_alone": device_ms_alone("minimal_moments", lambda: minimal_moments(idx, p, q)),
+            # The floor of its launch: as many blocks that do nothing.
+            "empty_kernel_device_ms": device_ms_alone(
+                "empty_kernel", lambda: ceilings.empty_kernel(-(-K // K1_THREADS))),
             "plain_ms": time_ms(lambda: minimal_moments_reference(idx, p, q)),
             "library_ms": None,
             "bytes": 4 * (M * K + 16 * K) + 24 * N,
@@ -1679,6 +1702,12 @@ def msac_variant_checks(T, p, q, label):
                                 ("variant_M", mv.quad_M, mv.quad_M_reference)):
         m, c = kernel(feat, pn, TAU)
         mp, cp = chunked(lambda f: plain(f, pn, TAU), feat)
+        if name == "variant_M":
+            again = kernel(feat, pn, TAU)
+            torch.cuda.synchronize()
+            if not (torch.equal(m.view(torch.int32), again[0].view(torch.int32))
+                    and torch.equal(c, again[1])):
+                raise AssertionError(f"variant_M {label}: two runs differ")
         torch.cuda.synchronize()
         check[name] = check_quad_variant(m, c, feat, pn, f"{name} {label}")
         check[name + " (plain)"] = check_quad_variant(mp, cp, feat, pn, f"{name} plain {label}")
@@ -1688,6 +1717,61 @@ def msac_variant_checks(T, p, q, label):
         err[name] = max_abs_err(m, mp)
     check["max_abs_err_vs_plain"] = err
     return check, err
+
+
+def t3_small_k_checks(T, p, q):
+    """T3 at K = 1 and K = 65 against float64 and its plain version, with
+    bit-equal reruns: a partial row tile, and one row past a tile (with the
+    NaN pose 3)."""
+    out = []
+    for k in (1, 65):
+        feat, pn = rs._quad_features(T[:k].contiguous(), p, q)
+        m, c = mv.quad_M(feat, pn, TAU)
+        again = mv.quad_M(feat, pn, TAU)
+        mp, cp = mv.quad_M_reference(feat, pn, TAU)
+        torch.cuda.synchronize()
+        if not (torch.equal(m.view(torch.int32), again[0].view(torch.int32)) and torch.equal(c, again[1])):
+            raise AssertionError(f"variant_M K={k}: two runs differ")
+        rec = check_quad_variant(m, c, feat, pn, f"variant_M K={k} N={p.shape[0]}")
+        rec.update(shape=f"K={k} N={p.shape[0]}", max_abs_err_vs_plain=max_abs_err(m, mp),
+                   counts_differ_vs_plain=int((c != cp).sum()))
+        out.append(rec)
+    return {"variant_M small K": out}
+
+
+# Bits of edge values for T3's split: ties at the 13th bit (both signs),
+# just below and above one, a tie at the top of the range (rounds to inf),
+# FLT_MAX, +-inf, NaN, subnormals (a tie, the smallest, the largest).
+TF32_EDGE_BITS = (0x3F801000, 0x3F803000, 0xBF801000, 0x3F800FFF, 0x3F801001, 0x7F7FF000,
+                  0x7F7FFFFF, 0xFF7FFFFF, 0x7F800000, 0xFF800000, 0x7FC00000, 0x00001000,
+                  0x00000001, 0x807FFFFF, 0x00000000, 0x80000000)
+
+
+def check_tf32_split(feat, pn):
+    """T3 splits each operand x = hi + lo with cvt.rna.tf32.f32, held here
+    against rounding by bits ((b + 0x1000) & ~0x1fff, inf kept, NaN made the
+    quiet NaN). Both on the edge values, +-1e8 (the pad sentinels' size),
+    65536 normal values of scale 30 and every entry of the main problem's
+    feat and pn: hi and lo bit for bit, or both NaN (NaN inputs, whose
+    payloads the two canonicalise differently, and inf - inf)."""
+    g = generator(52)
+    edge = torch.tensor([b - (1 << 32) if b >= 1 << 31 else b for b in TF32_EDGE_BITS],
+                        dtype=torch.int32, device=DEV).view(torch.float32)
+    x = torch.cat([edge, torch.tensor([1e8, -1e8, 1.23456789e8], device=DEV),
+                   30.0 * torch.randn(65536, generator=g, device=DEV),
+                   feat.reshape(-1), pn.reshape(-1)]).contiguous()
+    out = torch.empty((x.numel(), 4), dtype=torch.int32, device=DEV)
+    _build.launch("tf32_split_check", x.data_ptr(), out.data_ptr(), x.numel())
+    torch.cuda.synchronize()
+    def differ(a, b):
+        nan = torch.isnan(a.view(torch.float32)) & torch.isnan(b.view(torch.float32))
+        return int(((a != b) & ~nan).sum()), int(nan.sum())
+
+    (hi_differ, hi_nan), (lo_differ, lo_nan) = differ(out[:, 0], out[:, 2]), differ(out[:, 1], out[:, 3])
+    if hi_differ or lo_differ:
+        raise AssertionError(f"cvt.rna split differs from the bit-level one: hi {hi_differ}, lo {lo_differ}")
+    return {"values": x.numel(), "hi_differ": 0, "lo_differ": 0, "hi_both_nan": hi_nan,
+            "lo_both_nan": lo_nan}
 
 
 def probe_checks():
@@ -1798,11 +1882,18 @@ def phase_msac_opt():
     _, p, q, T = hypotheses(12, K, N)
     main_check, err = msac_variant_checks(T, p, q, f"K={K} N={N}")
     checks.append(main_check)
+    checks.append(t3_small_k_checks(T, p, q))
+    checks.append({"tf32 split, cvt.rna vs bit-level": check_tf32_split(*rs._quad_features(T, p, q))})
     err = {"variant_A": err[f"variant_A[{mv.K3_POSES_PER_THREAD}]"],
            "variant_D": err[f"variant_D[{mv.K3_POSES_PER_THREAD}]"],
            "variant_C": err["variant_C"], "variant_M": err["variant_M"]}
     checks += probe_checks()
     records = harness_records(T, p, q, err)
+    # T3 alone on the device at both sizes of the timing table.
+    t3_device_ms = {}
+    for kk in (4096, K):
+        feat_k, pn_k = rs._quad_features(T[:kk].contiguous(), p, q)
+        t3_device_ms[kk] = device_ms_alone("variant_M", lambda: mv.quad_M(feat_k, pn_k, TAU))
     P = rs.pack_poses(T)
     t1_device_ms = {
         P_: device_ms_alone("variant_A", lambda P_=P_: mv.variant_A(P, p, q, TAU, poses_per_thread=P_))
@@ -1836,6 +1927,7 @@ def phase_msac_opt():
                  for kk, rows in table.items()},
          launches={rec["name"]: rec["launches"] for rec in records},
          variant_A_device_ms_by_poses_per_thread=t1_device_ms,
+         variant_M_device_ms_by_K=t3_device_ms, sass_T3_K1=roofline.audit_t3_k1_sass(),
          parity_K4096=msac_opt.parity(*msac_opt.problem(4096)))
     return records, t1_device_ms, fma
 

@@ -68,6 +68,8 @@ _SIGNATURES = {
     "fma_chain_ceiling": [_P, _P, _I, _F, _F, _P],
     # blocks: a kernel that does nothing, the floor of a launch
     "empty_kernel": [_I, _P],
+    # x, out, n: T3's TF32 split by cvt.rna against the bit-level one
+    "tf32_split_check": [_P, _P, _I, _P],
 }
 
 _lib = None

@@ -306,6 +306,9 @@ _SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 _SASS_BRANCH = re.compile(r"\bBRA 0x([0-9a-f]+)")
 # pose_kernel<Residual, P, kCount>, mangled
 _POSE_KERNEL = re.compile(r"pose_kernelINS0_12Residual(\w+?)ELi(\d+)ELb([01])E")
+# quad_mma_kernel<kWG, kVec> and minimal_moments_kernel<kM>, mangled
+_T3_KERNEL = re.compile(r"quad_mma_kernelILi(\d+)ELb([01])E")
+_K1_KERNEL = re.compile(r"minimal_moments_kernelILi(\d+)E")
 
 
 def _sass_functions(sass: str) -> dict:
@@ -348,6 +351,97 @@ def _hot_loop(instructions):
     return best
 
 
+def _loop_with_most(instructions, key):
+    """The loop (a backward branch's range, inner loops included) with the
+    most ``key`` instructions, the shortest of those: its instructions,
+    without NOPs."""
+    best, best_n, best_len = [], 0, None
+    for addr, ins in instructions:
+        b = _SASS_BRANCH.search(ins)
+        if not b or int(b.group(1), 16) >= addr:
+            continue
+        lo = int(b.group(1), 16)
+        body = [i for a, i in instructions if lo <= a <= addr and not i.startswith("NOP")]
+        n = sum(i.startswith(key) for i in body)
+        if n > best_n or (n == best_n and n and len(body) < best_len):
+            best, best_n, best_len = body, n, len(body)
+    return best
+
+
+def _compile_audit(stem: str, tmp: str):
+    """Compile ``ops/csrc/<stem>.cu`` with the package's flags into a cubin
+    under ``tmp``. Returns (mangled kernel name -> {registers, spill_bytes},
+    the ptxas performance notes (C75xx), kernel name -> SASS instructions)."""
+    from rgbd_pose_estimation_tpu_torch.ops import _build
+
+    nvcc = _build._find_nvcc()
+    cubin = os.path.join(tmp, stem + ".cubin")
+    built = subprocess.run(
+        [nvcc, *_build._NVCC_FLAGS, "-Xptxas", "-v", "-cubin", "-o", cubin,
+         str(_build._CSRC / (stem + ".cu"))],
+        capture_output=True, text=True, check=True)
+    regs, name, notes = {}, None, []
+    for line in (built.stdout + built.stderr).splitlines():
+        if _PTXAS_ENTRY.search(line):
+            name = _PTXAS_ENTRY.search(line).group(1)
+        elif "(C75" in line:
+            notes.append(line.split("ptxas info    : ", 1)[-1])
+        elif name and _PTXAS_SPILL.search(line):
+            m = _PTXAS_SPILL.search(line)
+            regs.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and _PTXAS_REGS.search(line):
+            regs.setdefault(name, {})["registers"] = int(_PTXAS_REGS.search(line).group(1))
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    return regs, notes, _sass_functions(sass)
+
+
+def audit_t3_k1_sass() -> dict:
+    """What the compiler made of T3 (``ops/csrc/quad_mma.cu``) and K1
+    (``ops/csrc/moments.cu``). T3, each instance: registers a thread,
+    spilled bytes, ptxas's notes on serialised wgmma, and its tile loop (the
+    loop with the most HGMMA, two tiles a trip): its instructions, its HGMMA
+    and the warpgroup waits in it. K1, each sample size m (0: the instance
+    that takes any m in chunks of 8): registers, instructions, and the global
+    loads it issues before its first multiply (3 + 6m when one latency round
+    serves the whole sample). Needs ``nvcc`` and ``cuobjdump``, no card."""
+    from rgbd_pose_estimation_tpu_torch.ops import _build
+
+    out = {"T3": [], "K1": []}
+    _build._BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD) as tmp:
+        regs, notes, fns = _compile_audit("quad_mma", tmp)
+        for fn, instructions in fns.items():
+            k = _T3_KERNEL.search(fn)
+            if not k:
+                continue
+            loop = _loop_with_most(instructions, "HGMMA")
+            out["T3"].append({
+                "warpgroups_a_block": int(k.group(1)), "vector_loads": k.group(2) == "1",
+                **regs.get(fn, {}), "loop_instructions": len(loop),
+                "loop_hgmma": sum(ins.startswith("HGMMA") for ins in loop),
+                "loop_warpgroup_waits": sum(ins.startswith("WARPGROUP.DEPBAR") for ins in loop),
+            })
+        out["T3_ptxas_notes"] = notes
+        regs, _, fns = _compile_audit("moments", tmp)
+        for fn, instructions in fns.items():
+            k = _K1_KERNEL.search(fn)
+            if not k:
+                continue
+            ops = [ins.split()[ins.startswith("@")] for _, ins in instructions]
+            first_mul = next((i for i, op in enumerate(ops) if op.startswith("FMUL")), len(ops))
+            out["K1"].append({
+                "m": int(k.group(1)), **regs.get(fn, {}),
+                "instructions": sum(op != "NOP" for op in ops),
+                "loads_before_first_multiply": sum(op.startswith("LDG") for op in ops[:first_mul]),
+            })
+    if not out["T3"] or not out["K1"]:
+        raise RuntimeError("audit_t3_k1_sass: a kernel was not found in the SASS")
+    out["K1"].sort(key=lambda r: (r["m"] == 0, r["m"]))
+    return out
+
+
 def audit_exact_sass() -> list:
     """What the compiler made of the pose-stationary kernels of
     ``ops/csrc/msac_exact.cuh`` (K3, K5, T1 and T5): for each instance, its
@@ -360,31 +454,14 @@ def audit_exact_sass() -> list:
     ``cuobjdump``, no card."""
     from rgbd_pose_estimation_tpu_torch.ops import _build
 
-    nvcc = _build._find_nvcc()
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     owner = {("score3d", "1"): "K3", ("score2d", "1"): "K5",
              ("msac_variants", "1"): "T1", ("msac_variants", "0"): "T5"}
     rows = []
     _build._BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD) as tmp:
         for stem in ("score3d", "score2d", "msac_variants"):
-            cubin = os.path.join(tmp, stem + ".cubin")
-            built = subprocess.run(
-                [nvcc, *_build._NVCC_FLAGS, "-Xptxas", "-v", "-cubin", "-o", cubin,
-                 str(_build._CSRC / (stem + ".cu"))],
-                capture_output=True, text=True, check=True)
-            regs, name = {}, None
-            for line in (built.stdout + built.stderr).splitlines():
-                if _PTXAS_ENTRY.search(line):
-                    name = _PTXAS_ENTRY.search(line).group(1)
-                elif name and _PTXAS_SPILL.search(line):
-                    m = _PTXAS_SPILL.search(line)
-                    regs.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-                elif name and _PTXAS_REGS.search(line):
-                    regs.setdefault(name, {})["registers"] = int(_PTXAS_REGS.search(line).group(1))
-            sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
-                                  check=True).stdout
-            for fn, instructions in _sass_functions(sass).items():
+            regs, _, fns = _compile_audit(stem, tmp)
+            for fn, instructions in fns.items():
                 k = _POSE_KERNEL.search(fn)
                 if not k:
                     continue

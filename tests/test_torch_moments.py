@@ -37,7 +37,9 @@ def test_matches_pallas_kernel_interpreted(k, n, m):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=3e-5, atol=3e-5)
 
 
-@pytest.mark.parametrize("k,n,m", [(256, 128, 3), (1000, 100, 3), (7, 5, 1), (64, 200, 5)])
+@pytest.mark.parametrize(
+    "k,n,m", [(256, 128, 3), (1000, 100, 3), (7, 5, 1), (64, 200, 5), (33, 40, 2), (33, 40, 8)]
+)
 def test_matches_jnp_twin(k, n, m):
     """Against the gathering jnp twin, any (K, N, m). Both sum m f32
     products; 1e-6 relative is a few ulps, and the absolute 1e-6 covers

@@ -5,6 +5,8 @@ interpreter, and against the JAX package's exact scorer. The CUDA kernels
 T1, T2, T3 and T5 are held against these plain versions on the card by
 chip_smoke.py."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,7 +156,9 @@ def test_library_route_bf16_and_arguments(problem):
 
 def test_kernel_sources_keep_their_contracts():
     """Nothing compiles here, so this reads the sources: T3 multiplies on
-    the tensor cores in TF32 with three passes (3xTF32); K2 and T2 are one
+    the tensor cores with the warpgroup MMA in TF32, three passes (3xTF32),
+    its operands split by cvt.rna and pn brought in by cp.async; K1 is
+    instantiated over the sample size m at compile time; K2 and T2 are one
     kernel with K2's flags unchanged; K3, K5, T1 and T5 are instances of the
     one exact-MSAC header, and score2d.cu has no kernel of its own; no
     floating-point atomics and no fminf (which would drop NaN); the 2D-3D
@@ -162,8 +166,14 @@ def test_kernel_sources_keep_their_contracts():
     reciprocal's fast path is not exact)."""
     src = {p.name: p.read_text() for p in _build._CSRC.glob("*.cu*")}
     mma = src["quad_mma.cu"]
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in mma
-    assert mma.count("mma_tf32(d, a_") == 3  # lo*hi, hi*lo, hi*hi
+    assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k8\.f32\.tf32\.tf32", mma)
+    assert "mma.sync" not in mma  # no second design beside it
+    # lo*hi, hi*lo, hi*hi per k-step
+    assert mma.count("(d, a_lo, desc);") == 1 and mma.count("(d, a_hi, desc);") == 2
+    assert "cvt.rna.tf32.f32" in mma and "cp.async.cg.shared.global" in mma
+    moments = src["moments.cu"]
+    assert "template <int kM>" in moments
+    assert all(f"case {m}: launch<{m}>(" in moments for m in range(1, 9))
     assert "quad_score_kernel<true, true, false>" in src["quad_score.cu"]
     assert "quad_score_kernel<false, false, true>" in src["quad_score.cu"]
     assert "score3d.cuh" not in src
