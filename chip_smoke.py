@@ -23,7 +23,8 @@ through the launch counters that each path went through its kernels:
 - the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
   of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
   T6 against their plain versions, then the msac timing table at K = 4096
-  and 32768 x N = 2048 and the measured ceilings, graph-chained
+  and 32768 x N = 2048 and the measured ceilings, graph-chained, with T4
+  also at (8, 131072), and its SASS issue floor
   (``msac_opt``).
 
 Every phase prints one JSON line; any failed check raises, so the exit code
@@ -66,6 +67,7 @@ from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
 from rgbd_pose_estimation_tpu_torch.ops import _build, ceilings
 from rgbd_pose_estimation_tpu_torch.ops import msac_variants as mv
 from rgbd_pose_estimation_tpu_torch.ops import ransac_score as rs
+from rgbd_pose_estimation_tpu_torch.ops import icp_jtj
 from rgbd_pose_estimation_tpu_torch.ops.icp_jtj import (
     icp_assoc_jtj_jtr,
     icp_assoc_jtj_jtr_reference,
@@ -364,9 +366,9 @@ def check_icp_jtj(p, q, n, w):
     each is held to float64 of the same inputs within 1e-4 of the sum of the
     entry's absolute terms (f32 rounding, ~6e-8 a step, over a tree of
     additions and the residual's own cancellation n·(p−q)), and the two to
-    each other within twice that. Run twice, the kernel must give the same
-    bits. Returns max |kernel − plain| and the kernel's largest share of its
-    bound's scale."""
+    each other within twice that. Run twice back to back, the kernel must
+    give the same bits. Returns max |kernel − plain| and the kernel's largest
+    share of its bound's scale."""
     out, again = flat8(icp_jtj_jtr(p, q, n, w)), flat8(icp_jtj_jtr(p, q, n, w))
     plain = flat8(icp_jtj_jtr_reference(p, q, n, w))
     ref, scale = jtj_f64(p, q, n, w)
@@ -382,12 +384,65 @@ def check_icp_jtj(p, q, n, w):
     return {"max_abs_err_vs_plain": max_abs_err(out, plain), "max_err_vs_f64_over_abs_sum": share}
 
 
+def check_icp_jtj_graphs(rows_a, rows_b, calls=16):
+    """K4 recorded into two CUDA graphs of ``calls`` launches each, on rows
+    of different grids: every launch of every replay gives the eager call's
+    bits, with the second graph replayed before the first, then each after
+    the other, then the two at once on two streams, so that their launches
+    run on the card together. Before each replay the results are set to
+    NaN: a launch whose last block never summed shows. Each capture holds a
+    ticket of its own, zeroed by a node of its graph at every replay; the
+    capture stream has run no eager K4."""
+    eager = [flat8(icp_jtj_jtr(*rows)).clone() for rows in (rows_a, rows_b)]
+    graphs, results = [], []
+    for rows in (rows_a, rows_b):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            results.append([icp_jtj_jtr(*rows) for _ in range(calls)])
+        graphs.append(graph)
+
+    def poison(i):
+        for res in results[i]:
+            for x in res:
+                x.fill_(float("nan"))
+
+    replays = []  # (graph, the outputs of its launches after the replay)
+    for i in (1, 0, 0, 1, 1, 0):
+        poison(i)
+        graphs[i].replay()
+        replays.append((i, [flat8(res).clone() for res in results[i]]))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for _ in range(5):
+        for i, stream in enumerate(streams):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                poison(i)
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                graphs[i].replay()
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                replays.append((i, [flat8(res).clone() for res in results[i]]))
+            torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    differ = [n for n, (i, outs) in enumerate(replays)
+              if not all(torch.equal(o.view(torch.int32), eager[i].view(torch.int32)) for o in outs)]
+    if differ:
+        raise AssertionError(f"icp_jtj_jtr: CUDA-graph replays {differ} of {len(replays)} differ "
+                             f"from the eager call")
+    return {"rows": f"two CUDA graphs of {calls} launches, M={rows_a[0].shape[0]} and "
+                    f"{rows_b[0].shape[0]}: the second replayed first, one after the other, "
+                    f"two streams at once", "replays": len(replays), "bit_equal_to_eager": True}
+
+
 def kernel_icp_jtj():
     """K4 at every size of the rows of a 640x480 track (the photometric
     step's rows among them), on the rows of real association steps (started
     from identity, so residuals are those of a first iteration), then ragged
-    sizes, zero weights and a NaN row.
-    Returns (checks, the record of the main path's largest shape)."""
+    sizes, zero weights, a NaN row and CUDA-graph replays. Timings by size:
+    K4 alone on the device beside an empty kernel of its grid.
+    Returns (checks, the record of the main path's shape, its error, the
+    records at the other sizes)."""
     checks, rows_by_name = [], {}
     eye = torch.eye(4, device=DEV)
     photo_cfg = IcpConfig(downscale=1, source_stride=(4, 4, 2), reassoc_every=2,
@@ -426,6 +481,7 @@ def kernel_icp_jtj():
     if not bool(torch.isnan(flat8(icp_jtj_jtr(p, q, n, w))).any()):
         raise AssertionError("icp_jtj_jtr: a NaN in a zero-weight row was skipped")
     checks.append({"rows": "one NaN row of weight 0", **nan_err})
+    checks.append(check_icp_jtj_graphs(rows_by_name["config3 level 0"], rows_by_name["dense level 0"]))
 
     def timings(rows):
         p, q, n, w = rows
@@ -433,12 +489,17 @@ def kernel_icp_jtj():
         r = torch.sum(n * (p - q), dim=-1, keepdim=True)
         J = torch.cat([n, torch.linalg.cross(p, n, dim=-1), r, torch.ones_like(r)], dim=-1)
         Jw = J * w[:, None]
-        alone = [{"name": "icp_jtj_jtr", "device_ms": None}]
-        set_device_ms(alone, profile_device(lambda: [icp_jtj_jtr(p, q, n, w) for _ in range(20)]))
+        blocks = icp_jtj._blocks(M, p.device)
+        calls = profile_device(lambda: [icp_jtj_jtr(p, q, n, w) for _ in range(20)])
         return {
             "M": M,
             "ms": time_ms(lambda: icp_jtj_jtr(p, q, n, w)),
-            "device_ms": alone[0]["device_ms"],
+            "device_ms": device_ms_alone("icp_jtj_jtr", lambda: icp_jtj_jtr(p, q, n, w)),
+            # every kernel the card ran for 20 calls, over 20
+            "device_kernels_per_call": sum(r[1] for r in calls) / 20 if calls else None,
+            # The floor of its launch: as many blocks that do nothing.
+            "blocks": blocks,
+            "empty_kernel_device_ms": device_ms_alone("empty_kernel", lambda: ceilings.empty_kernel(blocks)),
             "plain_ms": time_ms(lambda: icp_jtj_jtr_reference(p, q, n, w)),
             # One library product on the Jacobian built beforehand. The port
             # never calls it.
@@ -584,6 +645,19 @@ def kernel_icp_assoc():
     if float(flat8(acc(T_far)[:4])[-1]) != 0.0 or float(stats[1]) != 0.0 or not torch.equal(T_new, T_far):
         raise AssertionError("icp_assoc_jtj_jtr: a pose that sees nothing took a step")
     checks.append({"rows": "config3 level 0, pose that sees nothing", "weight_sum": 0.0})
+    # K4 between fused steps on one stream: each has its own ticket, and each
+    # gives the bits it gives alone.
+    rows = icp_assoc_rows_reference(eye, *source_rows(inputs), maps[2], maps[3], intr, thr)[0]
+    k4_err = check_icp_jtj(*rows)
+    alone = [flat8(acc(eye)[:4]).clone(), flat8(icp_jtj_jtr(*rows)).clone()]
+    mixed = []
+    for _ in range(2):
+        mixed += [flat8(acc(eye)[:4]).clone(), flat8(icp_jtj_jtr(*rows)).clone()]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(mixed, alone * 2)):
+        raise AssertionError("the fused step and K4 interleaved on one stream differ from each alone")
+    checks.append({"rows": "config3 level 0: the fused step and K4 interleaved on one stream",
+                   "bit_equal_to_each_alone": True, "K4": k4_err})
 
     def record(key):
         acc, inputs = levels[key]
@@ -1264,7 +1338,7 @@ def phase_icp_track():
     track launches the fused step kernel once a Gauss-Newton step and K4 not
     at all; then a short run of each branch of the step that still goes
     through K4 (photometric rows, bilinear association) at 160x120. Each
-    bench row also gives the launches on the device and the busy time of one
+    track also gives the launches on the device and the busy time of one
     track under the profiler, and the CUDA-graph slope of chained tracks (the
     device time without the host's launching). Returns ms per track by
     setting and K4's launches (its path, the photometric and bilinear tracks,
@@ -1300,7 +1374,16 @@ def phase_icp_track():
         src, tgt, T_gt = icp_scene(cfg, small, intensity)
         err, stats, counts = track_once(small, cfg, src, tgt, T_gt,
                                         {"icp_jtj_jtr": sum(cfg.iters_per_level)})
-        out[name] = {"pose_max_err": err, "stats": stats, "icp_jtj_jtr_launches": counts["icp_jtj_jtr"]}
+        prof = profile_device(lambda: icp_track(small, cfg, eye, src, tgt))
+        on_device = device_summary(prof)
+        out[name] = {
+            "pose_max_err": err, "stats": stats, "icp_jtj_jtr_launches": counts["icp_jtj_jtr"],
+            "device_launches_per_track": on_device["cuda_kernel_launches"],
+            "k4_device_kernels_per_track": sum(r[1] for r in prof if DEVICE_NAMES["icp_jtj_jtr"][0] in r[0]),
+            "device_busy_ms": on_device["device_busy_ms"],
+            "graph_ms_per_track": 1e3 * timeit_chain(
+                lambda T: icp_track(small, cfg, T, src, tgt)[0], eye, n1=2, n2=12),
+        }
         for k, v in counts.items():
             k4_counts[k] = k4_counts.get(k, 0) + v
     emit("icp_track", width=CAM.width, height=CAM.height, levels=3, **out)
@@ -1418,7 +1501,7 @@ DEVICE_NAMES = {
     "score_poses_3d3d_quad_fused": ("quad_bf16_mma_kernel",),
     "quad_fused_cuda_cores": ("quad_score_kernel",),
     "score_poses_3d3d": ("Residual3D3D",),
-    "icp_jtj_jtr": ("icp_jtj_partial_kernel", "icp_jtj_finish_kernel"),
+    "icp_jtj_jtr": ("icp_jtj_kernel",),
     "icp_assoc_jtj_jtr": ("icp_assoc_kernel",),
     "score_poses_2d3d": ("Residual2D3D",),
     "variant_A": ("Residual3D3D",),
@@ -1775,14 +1858,17 @@ def check_tf32_split(feat, pn):
 
 
 def probe_checks():
-    """T4 and T6 against their plain versions: the same bits."""
+    """T4 and T6 against their plain versions: the same bits. T4 at its
+    compiled-in 64 iterations and through its generic instance (3 and 7
+    iterations), on full and ragged shapes."""
     from rgbd_pose_estimation_tpu_torch.ops import ceilings
 
     g = generator(51)
     checks = []
-    for x, reps in ((torch.ones((8, 2048), device=DEV), 64),
-                    (-0.5 + 0.02 * torch.randn((8, 2048), generator=g, device=DEV), 64),
-                    (-0.5 + 0.02 * torch.randn((5, 1000), generator=g, device=DEV), 3)):
+    ones = torch.ones((8, 2048), device=DEV)
+    near = -0.5 + 0.02 * torch.randn((8, 2048), generator=g, device=DEV)
+    ragged = -0.5 + 0.02 * torch.randn((5, 1000), generator=g, device=DEV)
+    for x, reps in ((ones, 64), (near, 64), (ragged, 3), (ragged, 64), (near, 7)):
         out, ref = ceilings.msac_op_mix(x, reps), ceilings.msac_op_mix_reference(x, reps)
         torch.cuda.synchronize()
         if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
@@ -1920,7 +2006,26 @@ def phase_msac_opt():
     if failed:
         raise AssertionError(f"msac timing rows failed: {failed}")
     fma = ceilings_measured["fma_tflops"]
+    # T4 at a shape that fills the card (not on the main path), and alone
+    # on the device at both shapes, beside its issue floor.
+    op_mix_wide = msac_opt.variant_E_ceiling(N=131072)
+    t4 = {"op_mix_tflops_8x131072": op_mix_wide}
+    for n in (2048, 131072):
+        x = torch.ones((8, n), device=DEV)
+        t4[f"device_ms_8x{n}"] = device_ms_alone("variant_E_ceiling", lambda: ceilings.msac_op_mix(x, 64))
+    sass = roofline.audit_t4_k4_sass()
+    per_iteration = next(r["instructions_an_element_iteration"] for r in sass["T4"]
+                         if r.get("reps") == ceilings.OP_MIX_REPS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor_cycles = 8 * 2048 * ceilings.OP_MIX_REPS * per_iteration / 32 / (4 * sms)
+    mhz = max_sm_clock_mhz()
+    t4["issue_floor_8x2048"] = {
+        "sass_instructions_an_element_iteration": per_iteration, "cycles": floor_cycles,
+        "max_sm_clock_mhz": mhz, "us_at_max_sm_clock": floor_cycles / mhz,
+        "bound_us": ceilings.OP_MIX_FLOPS * 64 * 8 * 2048 / PEAK_F32_FLOPS * 1e6,
+    }
     emit("msac_opt", checks=checks, harness_seconds=seconds, ceilings=ceilings_measured,
+         variant_E_ceiling=t4, sass_T4_K4=sass,
          timing={str(kk): {name: {"us": s * 1e6, "tflops": 23 * kk * N / s / 1e12,
                                   "share_of_fma_ceiling": 23 * kk * N / s / 1e12 / fma}
                            for name, s in rows.items()}
@@ -1929,10 +2034,18 @@ def phase_msac_opt():
          variant_A_device_ms_by_poses_per_thread=t1_device_ms,
          variant_M_device_ms_by_K=t3_device_ms, sass_T3_K1=roofline.audit_t3_k1_sass(),
          parity_K4096=msac_opt.parity(*msac_opt.problem(4096)))
-    return records, t1_device_ms, fma
+    return records, t1_device_ms, fma, op_mix_wide
 
 
-def phase_exact_msac(rows, harness, t1_device_ms, fma_tflops):
+def max_sm_clock_mhz():
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+
+
+def phase_exact_msac(rows, harness, t1_device_ms, fma_tflops, op_mix_tflops):
     """The exact MSAC scorers of msac_exact.cuh side by side (K3, K5, T1 at
     every poses-per-thread, T5), each alone on the device: its time, its
     bound (operations at the published f32 peak), and the share of the bound
@@ -1953,7 +2066,9 @@ def phase_exact_msac(rows, harness, t1_device_ms, fma_tflops):
         r["bound_ms"] = r["ops"] / PEAK_F32_FLOPS * 1e3
         r["share_of_bound"] = None if ms is None else r["bound_ms"] / ms
         r["share_of_fma_ceiling"] = None if ms is None else r["ops"] / (ms * 1e9) / fma_tflops
-    emit("exact_msac", fma_ceiling_tflops=fma_tflops, rows=rows, sass=roofline.audit_exact_sass())
+        r["share_of_op_mix_ceiling"] = None if ms is None else r["ops"] / (ms * 1e9) / op_mix_tflops
+    emit("exact_msac", fma_ceiling_tflops=fma_tflops, op_mix_ceiling_tflops_8x131072=op_mix_tflops,
+         rows=rows, sass=roofline.audit_exact_sass())
 
 
 def main():
@@ -1992,9 +2107,9 @@ def main():
         if rec["launches"] < 1:
             raise AssertionError(f"{rec['name']} was not launched by the main path")
     # T1-T6: launches of the harness phase, counted from zero there.
-    harness, t1_device_ms, fma = phase_msac_opt()
+    harness, t1_device_ms, fma, op_mix = phase_msac_opt()
     records += harness
-    phase_exact_msac(exact_rows, harness, t1_device_ms, fma)
+    phase_exact_msac(exact_rows, harness, t1_device_ms, fma, op_mix)
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({

@@ -44,8 +44,8 @@ _SIGNATURES = {
     "score_poses_3d3d": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     # poses, points, obs, msac, count, K, N, tau2
     "score_poses_2d3d": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
-    # p, q, n, w, partials, out, M, blocks
-    "icp_jtj_jtr": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # p, q, n, w, partials, out, ticket, M, blocks
+    "icp_jtj_jtr": [_P] * 7 + [_I, _I, _P],
     # src_v, src_n, tgt_v, tgt_n, assoc, partials, out, ticket, H, W, stride,
     # th, tw, blocks, fx, fy, cx, cy, dist2, normal_thr, huber, T, fresh
     "icp_assoc_jtj_jtr": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P, _I, _P],
@@ -161,6 +161,8 @@ def library(verbose: bool = False):
             fn.restype = ctypes.c_int
         lib.rgbd_error_string.argtypes = [ctypes.c_int]
         lib.rgbd_error_string.restype = ctypes.c_char_p
+        lib.rgbd_capture_id.argtypes = [_P]
+        lib.rgbd_capture_id.restype = ctypes.c_ulonglong
         _lib = lib
     return _lib
 
@@ -176,6 +178,12 @@ def launch(name: str, *args) -> None:
         msg = lib.rgbd_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
     _launches[name] += 1
+
+
+def capture_id(stream: int) -> int:
+    """A number that tells apart the CUDA-graph captures ``stream`` (a
+    handle) records into; 0 while it records none."""
+    return library().rgbd_capture_id(stream)
 
 
 def check_cuda_input(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -29,6 +29,7 @@ from rgbd_pose_estimation_tpu_torch.ops import _build
 
 OP_MIX_TAU2 = 0.0025
 OP_MIX_FLOPS = 23  # an element and iteration, as the TPU tool counts them
+OP_MIX_REPS = 64  # the harness's iterations: compiled into the kernel
 FMA_REPS = 256
 FMA_SCALE = 0.9999847412109375  # 1 - 2^-16
 FMA_SHIFT = 1.52587890625e-05  # 2^-16: a = 1 is the chain's fixed point
@@ -46,7 +47,8 @@ def _op_mix_constants(reps: int, device: str) -> torch.Tensor:
 def msac_op_mix(x: torch.Tensor, reps: int = 64) -> torch.Tensor:
     """T4 on ``x`` (R, N) f32, R ≥ 3: every element (r, n) runs ``reps``
     iterations of the scorer's op mix on (x[0, n], x[1, n], x[2, n]) and
-    returns acc + cnt; (R, N)."""
+    returns acc + cnt; (R, N). On the card ``OP_MIX_REPS`` iterations run
+    an instance with the count compiled in, any other count a generic one."""
     if x.dim() != 2 or x.shape[0] < 3 or reps < 1:
         raise ValueError(f"msac_op_mix: expected (R >= 3, N) and reps >= 1, got {tuple(x.shape)}, {reps}")
     if not x.is_cuda:

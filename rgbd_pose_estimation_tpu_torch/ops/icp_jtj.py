@@ -13,7 +13,9 @@ the symmetric 8x8 product of the weighted J then yields *everything* —
 Σ w`` — without ever materializing the (M, 8) Jacobian in device memory.
 
 Two CUDA entries, one source (``csrc/icp_jtj.cu``; the note at its top says
-what bounds each on the card and what the design does about it):
+what bounds each on the card and what the design does about it), each one
+launch of one body: rows summed in registers, a row of 36 sums a block, and
+the last block's sum of those rows, found by an integer ticket:
 
 - :func:`icp_jtj_jtr` (K4) takes the rows ``p``, ``q``, ``n`` ``(M, 3)`` and
   ``w`` ``(M,)``. It replaces both Pallas forms of the JAX package, VPU and
@@ -45,14 +47,44 @@ from rgbd_pose_estimation_tpu_torch.ops import _build
 _THREADS = 256  # threads a block, as in csrc/icp_jtj.cu
 _PAIRS = 36  # upper triangle of the symmetric augmented 8x8
 _sm_count = {}  # device index → streaming multiprocessors (asked once a device)
+# K4's tickets: one int32 each, at 0 between launches, held by launches that
+# run one after another. (device index, stream handle) → the ticket of eager
+# launches on that stream, zeroed when made (never inside a capture);
+# (device index, stream handle) → (capture id, ticket) of the CUDA-graph
+# capture that stream records, zeroed by a node of that graph at each replay.
+_tickets = {}
+_captured = {}
 
 
 def _blocks(M: int, dev) -> int:
-    """Grid of both kernels: a block per 256 rows, at most two per SM."""
+    """Grid of K4 and of the fused step: a block per 256 rows, at most two
+    per SM; the threads of a smaller grid take more rows in turn."""
     sms = _sm_count.get(dev.index)
     if sms is None:
         sms = _sm_count[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
     return min((M + _THREADS - 1) // _THREADS, 2 * sms)
+
+
+def _ticket(dev) -> torch.Tensor:
+    """K4's ticket for a launch on the current stream, the one
+    :func:`_build.launch` launches on. Eager launches on one stream run one
+    after another and share the stream's ticket, made at its first eager
+    use. A launch recorded into a CUDA graph takes its capture's own, made
+    at the capture's first launch on that stream: its zeroing is recorded
+    too, so every replay starts from 0, and no other graph or stream holds
+    it (replays of one graph run one after another)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    key = (dev.index, stream)
+    capture = _build.capture_id(stream)
+    if capture:
+        held = _captured.get(key)
+        if held is None or held[0] != capture:
+            held = _captured[key] = (capture, torch.zeros(1, dtype=torch.int32, device=dev))
+        return held[1]
+    ticket = _tickets.get(key)
+    if ticket is None:
+        ticket = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return ticket
 
 
 def icp_jtj_jtr(p: torch.Tensor, q: torch.Tensor, n: torch.Tensor, w: torch.Tensor):
@@ -81,7 +113,7 @@ def icp_jtj_jtr(p: torch.Tensor, q: torch.Tensor, n: torch.Tensor, w: torch.Tens
     _build.launch(
         "icp_jtj_jtr",
         p.data_ptr(), q.data_ptr(), n.data_ptr(), w.data_ptr(),
-        buf.data_ptr() + 256, buf.data_ptr(), M, blocks,
+        buf.data_ptr() + 256, buf.data_ptr(), _ticket(dev).data_ptr(), M, blocks,
     )
     return A[:6, :6], A[:6, 6], A[6, 6], A[7, 7]
 

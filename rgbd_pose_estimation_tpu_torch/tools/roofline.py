@@ -13,7 +13,10 @@ layers:
    Gauss-Newton step, a whole track, and the stage anatomy of the 3D-3D and
    2D-3D RANSAC estimates; and what the compiler made of the exact MSAC
    scorers' inner loop (:func:`audit_exact_sass`: registers, spills, SASS
-   instructions a pose-correspondence pair).
+   instructions a pose-correspondence pair), of T3 and K1
+   (:func:`audit_t3_k1_sass`) and of T4, K4 and the fused ICP step
+   (:func:`audit_t4_k4_sass`: registers, spills, instructions, T4's an
+   element and iteration).
 
 Timing protocol — **graph-chained**: :func:`timeit_chain` records n chained
 calls of a step into one CUDA graph and times replays of it with CUDA
@@ -309,6 +312,9 @@ _POSE_KERNEL = re.compile(r"pose_kernelINS0_12Residual(\w+?)ELi(\d+)ELb([01])E")
 # quad_mma_kernel<kWG, kVec> and minimal_moments_kernel<kM>, mangled
 _T3_KERNEL = re.compile(r"quad_mma_kernelILi(\d+)ELb([01])E")
 _K1_KERNEL = re.compile(r"minimal_moments_kernelILi(\d+)E")
+# op_mix_kernel<kReps> (T4), and K4's and the fused step's kernels, mangled
+_T4_KERNEL = re.compile(r"op_mix_kernelILi(\d+)E")
+_K4_KERNEL = re.compile(r"\d+(icp_jtj_kernel|icp_assoc_kernel)E")
 
 
 def _sass_functions(sass: str) -> dict:
@@ -439,6 +445,41 @@ def audit_t3_k1_sass() -> dict:
     if not out["T3"] or not out["K1"]:
         raise RuntimeError("audit_t3_k1_sass: a kernel was not found in the SASS")
     out["K1"].sort(key=lambda r: (r["m"] == 0, r["m"]))
+    return out
+
+
+def audit_t4_k4_sass() -> dict:
+    """What the compiler made of T4 (``ops/csrc/ceilings.cu``) and of K4
+    and the fused ICP step (``ops/csrc/icp_jtj.cu``): each kernel's
+    registers a thread, spilled bytes and SASS instructions (NOPs left out),
+    with the shuffles of K4's kernels. T4's instance with its 64 iterations
+    compiled in is one straight run of code, so its instructions over 64 are
+    what an element and iteration issues, set-up included. Needs ``nvcc``
+    and ``cuobjdump``, no card."""
+    from rgbd_pose_estimation_tpu_torch.ops import _build
+
+    out = {"T4": [], "K4": []}
+    _build._BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD) as tmp:
+        for stem, pattern, key in (("ceilings", _T4_KERNEL, "T4"), ("icp_jtj", _K4_KERNEL, "K4")):
+            regs, _, fns = _compile_audit(stem, tmp)
+            for fn, instructions in fns.items():
+                k = pattern.search(fn)
+                if not k:
+                    continue
+                ops = [ins.split()[ins.startswith("@")] for _, ins in instructions]
+                ops = [op for op in ops if op != "NOP"]
+                row = {**regs.get(fn, {}), "instructions": len(ops)}
+                if key == "T4":
+                    row = {"reps": int(k.group(1)), **row}
+                    if row["reps"] > 0:
+                        row["instructions_an_element_iteration"] = len(ops) / row["reps"]
+                else:
+                    row = {"kernel": k.group(1), **row,
+                           "shuffles": sum(op.startswith("SHFL") for op in ops)}
+                out[key].append(row)
+    if not out["T4"] or not out["K4"]:
+        raise RuntimeError("audit_t4_k4_sass: a kernel was not found in the SASS")
     return out
 
 

@@ -6,6 +6,7 @@ card by chip_smoke.py. The slope and its resolution guard are driven with a
 fake clock."""
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +16,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from rgbd_pose_estimation_tpu_torch.ops import ceilings
+from rgbd_pose_estimation_tpu_torch.ops import _build, ceilings
 from rgbd_pose_estimation_tpu_torch.tools import roofline
 from tools import msac_opt as jmsac
 from tools import roofline as jroofline
@@ -67,6 +68,25 @@ def test_probe_arguments():
         ceilings.msac_op_mix(torch.ones((2, 16)))
     with pytest.raises(ValueError, match="reps"):
         ceilings.msac_op_mix(torch.ones((8, 16)), reps=0)
+
+
+def test_op_mix_source_keeps_its_contract():
+    """Nothing compiles here, so this reads the source: T4 has the harness's
+    iteration count compiled in beside a generic instance for any other,
+    each operation of the op mix is an intrinsic rounded on its own (no
+    operator the compiler could contract), and one thread runs each of the
+    R x N elements: no column is computed once and copied."""
+    code = (_build._CSRC / "ceilings.cu").read_text().split("#include", 1)[1]
+    assert f"constexpr int kOpMixReps = {ceilings.OP_MIX_REPS};" in code
+    assert "op_mix_kernel<kOpMixReps><<<" in code and "op_mix_kernel<0><<<" in code
+    residual = code.split("op_mix_residual(float c, float px, float py, float pz) {", 1)[1]
+    residual = residual.split("\n}", 1)[0]
+    counts = {op: residual.count(op) for op in ("__fmul_rn(", "__fadd_rn(", "__fsub_rn(")}
+    assert counts == {"__fmul_rn(": 6, "__fadd_rn(": 5, "__fsub_rn(": 3}
+    assert not re.search(r"[*+/]|\s-\s", residual)
+    assert "if (i >= R * N) return;" in code and "out[i] = __fadd_rn(acc, cnt);" in code
+    assert "blocks = (R * N + kOpMixThreads - 1) / kOpMixThreads;" in code
+    assert "op_mix_split" not in code and "msac_op_mix_split" not in _build._SIGNATURES
 
 
 class _FakeClock:

@@ -63,6 +63,24 @@ def test_matches_reference_package(impl, m):
     assert _build.launch_counts()["icp_jtj_jtr"] == before
 
 
+def test_kernel_source_keeps_its_contract():
+    """Nothing compiles here, so this reads the source: K4 and the fused
+    step are one launch each of one shared body, whose last block is found
+    by a wrapping ticket; no floating-point atomics, no fence in every
+    thread, no fast math; a C entry tells the wrapper a graph capture's
+    launches from eager ones, whose tickets differ."""
+    code = (_build._CSRC / "icp_jtj.cu").read_text().split("#include", 1)[1]
+    assert code.count("__global__") == 2
+    assert code.count("accumulate_and_finish(") == 3  # the body and its two callers
+    assert "atom.acq_rel.gpu.global.inc.u32" in code
+    assert "atomicAdd" not in code and "__threadfence" not in code
+    k4_entry = code.split('extern "C" int rgbd_icp_jtj_jtr(', 1)[1].split("\n}", 1)[0]
+    assert k4_entry.count("<<<") == 1
+    assert 'extern "C" unsigned long long rgbd_capture_id(cudaStream_t stream)' in code
+    assert "use_fast_math" not in " ".join(_build._NVCC_FLAGS)
+    assert "icp_jtj_jtr_cluster" not in _build._SIGNATURES
+
+
 def test_against_float64():
     """Each entry within 1e-5 of the sum of its terms' absolute values: the
     bound that ``chip_smoke.py`` holds the kernel to at full size, with room
