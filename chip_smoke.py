@@ -20,6 +20,14 @@ through the launch counters that each path went through its kernels:
   step (``icp_track``), and the dense odometry server ``DenseOdometry`` over a rendered sequence, synchronous and
   pipelined (``odometry``); the photometric and bilinear steps, which still
   accumulate through K4, at 160x120;
+- the frame-pair model ``FramePairEstimator`` (configurations 1 and 2) at
+  640x480 through the FAST+BRIEF detector on the card: config 1's and the
+  default (Horn) 3D-3D estimators and config 2's 2D-3D estimator, from host
+  images to a pose, with detection and matching held against the CPU
+  (``frame_pair``);
+- the keyframe SLAM model ``Slam`` (configuration 4's backend) over 32
+  frames at 640x480: tracking, ICP-verified loop closures and the pose graph
+  (``slam``);
 - the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
   of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
   T6 against their plain versions, then the msac timing table at K = 4096
@@ -63,7 +71,12 @@ from rgbd_pose_estimation_tpu_torch.icp.dense import (
     level_step,
     make_icp_frame,
 )
+from rgbd_pose_estimation_tpu_torch.eval.ate import ate_rmse
+from rgbd_pose_estimation_tpu_torch.features import frontend, tpu_detect
+from rgbd_pose_estimation_tpu_torch.graph import pose_graph
+from rgbd_pose_estimation_tpu_torch.models.frame_pair import FramePairEstimator
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
+from rgbd_pose_estimation_tpu_torch.models.slam import Slam
 from rgbd_pose_estimation_tpu_torch.ops import _build, ceilings
 from rgbd_pose_estimation_tpu_torch.ops import msac_variants as mv
 from rgbd_pose_estimation_tpu_torch.ops import ransac_score as rs
@@ -103,6 +116,7 @@ from rgbd_pose_estimation_tpu_torch.solvers.pnp import pnp_refine
 from rgbd_pose_estimation_tpu_torch.utils.config import (
     IcpConfig,
     KeyframeConfig,
+    PipelineConfig,
     RansacConfig,
     load_yaml_config,
 )
@@ -1695,6 +1709,266 @@ def phase_reference():
 
 
 # ---------------------------------------------------------------------------
+# The frame-pair model and the SLAM model, from host images to poses
+# ---------------------------------------------------------------------------
+
+# The frame pair's gates are the JAX package's (tests/unit/test_tpu_features.py):
+# at least 30 matches, rotation and translation entries within 0.02 of the
+# ground-truth relative pose. Detection on the card is held against the same
+# function on CPU tensors: keypoints and validity equal, scores within 1e-6,
+# descriptor bits equal on 99.9% of the valid rows' bits (the centroid angle is
+# a sum of 1369 terms whose order the two devices choose).
+FRAME_PAIR_TOL = 0.02
+FRAME_PAIR_MIN_MATCHES = 30
+FRAME_PAIR_REPS = 5
+MAX_FEATURES = 512
+DESC_BITS_AGREE = 0.999
+
+
+def frame_pair_modes():
+    """name → (RansacConfig, mode, kernel launches a pair). Config 1 builds
+    its hypotheses with the port's kabsch, so no K1."""
+    cfg1 = load_yaml_config(_ROOT / "configs" / "config1_synthetic_ao_pair.yaml").ransac
+    cfg2 = load_yaml_config(_ROOT / "configs" / "config2_ransac_pnp_pair.yaml").ransac
+    ranking = {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1}
+    return {
+        "config1_3d3d_kabsch": (cfg1, "3d3d", ranking),
+        "default_3d3d_horn": (RansacConfig(), "3d3d", {"minimal_moments": 1, **ranking}),
+        "config2_2d3d": (cfg2, "2d3d", {"score_poses_2d3d": 1}),
+    }
+
+
+def check_detection(grays):
+    """FAST+BRIEF on the card against the same function on CPU tensors, for
+    both frames of the pair; then matching the two frames' descriptors on the
+    card against the CPU."""
+    out = {"keypoints": [], "score_max_abs_err": 0.0, "descriptor_bits_differing": 0,
+           "descriptor_bits": 0}
+    found = []
+    for gray in grays:
+        g = torch.from_numpy(gray)
+        card = [x.cpu() for x in tpu_detect.detect_and_describe(g.to(DEV), MAX_FEATURES)]
+        host = tpu_detect.detect_and_describe(g, MAX_FEATURES)
+        (uv, desc, valid, score), (uv_h, desc_h, valid_h, score_h) = card, host
+        if not torch.equal(uv, uv_h) or not torch.equal(valid, valid_h):
+            raise AssertionError("detect_and_describe: keypoints differ between card and CPU")
+        out["keypoints"].append(int(valid.sum()))
+        out["score_max_abs_err"] = max(out["score_max_abs_err"], float((score - score_h).abs().max()))
+        out["descriptor_bits_differing"] += int(
+            np.unpackbits((desc[valid] ^ desc_h[valid_h]).numpy(), axis=-1).sum())
+        out["descriptor_bits"] += int(valid.sum()) * 256
+        found.append((desc, valid))
+    if (out["score_max_abs_err"] > 1e-6
+            or out["descriptor_bits_differing"] > (1 - DESC_BITS_AGREE) * out["descriptor_bits"]):
+        raise AssertionError(f"detect_and_describe, card vs CPU: {out}")
+    # Matching on the card against the CPU on the same descriptors: equal.
+    pair = (*found[0], *found[1])
+    on_card = frontend.match_descriptors(*(x.to(DEV) for x in pair))
+    on_cpu = frontend.match_descriptors(*pair)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+        raise AssertionError("match_descriptors: card and CPU differ")
+    out["matches"] = int(on_cpu[1].sum())
+    out["matches_equal"] = True
+    return out
+
+
+def pair_split_ms(est, images, seed):
+    """One pair's wall time by stage, as ``estimate`` runs them: detection of
+    both frames (host images in, host arrays out), matching on the card, the
+    host part (depth lookup, quality sort, one copy to the card, padding),
+    and the estimate with its read-back. The card is synchronised before
+    each timer."""
+    ga, da, gb = images[:3]
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    uv_a, d_a, va = frontend._detect(ga, MAX_FEATURES, "tpu", DEV)
+    uv_b, d_b, vb = frontend._detect(gb, MAX_FEATURES, "tpu", DEV)
+    mark()
+    matches = frontend._match(d_a, va, d_b, vb, DEV)
+    mark()
+    if est.mode == "3d3d":
+        a, b = frontend._correspondences_3d3d(CAM, uv_a, uv_b, *matches, da, images[3])
+        n = min(len(a), est.max_corr)
+        a_pad, b_pad = pad_correspondences_3d3d(*est._ship(a[:n], b[:n]), est.max_corr)
+        run = estimate_pose_3d3d
+    else:
+        a, b = frontend._correspondences_2d3d(CAM, uv_a, uv_b, *matches, da)
+        n = min(len(a), est.max_corr)
+        a_pad, b_pad = pad_points_obs_2d3d(*est._ship(a[:n], b[:n]), est.max_corr)
+        run = estimate_pose_2d3d
+    mark()
+    run(generator(seed), a_pad, b_pad, est.cfg).pose.cpu()
+    mark()
+    return dict(zip(("detect", "match", "host", "estimate"), np.diff(marks).tolist())) | {
+        "total": marks[-1] - marks[0]}
+
+
+def phase_frame_pair():
+    """The frame-pair model a user calls for configurations 1 and 2, at
+    640x480 (the icp_track phase's camera), host images in: the FAST+BRIEF
+    detector on the card, matching on the card, the host's depth lookup and
+    sort, then the RANSAC engine's kernels. Returns the launch counts of each
+    mode's pair (the main path)."""
+    poses, depths, intens = synthetic_sequence(CAM, generator(41), 2, motion_scale=0.01, device=DEV)
+    gray = [g.cpu().numpy() for g in intens]
+    depth = [d.cpu().numpy() for d in depths]
+    P = poses.cpu().numpy()
+    T_ab = P[1] @ np.linalg.inv(P[0])
+    detection = check_detection(gray)
+    out, counts_by_mode = {}, {}
+    for name, (cfg, mode, launches) in frame_pair_modes().items():
+        est = FramePairEstimator(CAM, cfg, mode=mode, detector="tpu",
+                                 max_features=MAX_FEATURES, max_corr=MAX_FEATURES)
+        images = (gray[0], depth[0], gray[1], depth[1]) if mode == "3d3d" else (gray[0], depth[0], gray[1])
+        est.estimate(*images)  # warm-up: loads every library kernel the path uses
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        res = est.estimate(*images)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        expect_launches(counts, launches, f"frame pair {name}")
+        counts_by_mode[name] = counts
+        err_R = float(np.abs(res.pose[:3, :3] - T_ab[:3, :3]).max())
+        err_t = float(np.abs(res.pose[:3, 3] - T_ab[:3, 3]).max())
+        if (not res.valid or res.num_matches < FRAME_PAIR_MIN_MATCHES
+                or not max(err_R, err_t) < FRAME_PAIR_TOL):
+            raise AssertionError(f"frame pair {name}: {res}, errors {err_R} {err_t}")
+        times = []
+        for _ in range(FRAME_PAIR_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.estimate(*images)
+            times.append((time.perf_counter() - t0) * 1e3)
+        splits = [pair_split_ms(est, images, 100 + i) for i in range(FRAME_PAIR_REPS)]
+        on_device = device_summary(profile_device(lambda: est.estimate(*images)))
+        out[name] = {
+            "mode": mode, "solver": cfg.solver, "num_hypotheses": res.num_hypotheses,
+            "threshold": cfg.threshold, "prosac": cfg.prosac,
+            "num_matches": res.num_matches, "num_inliers": res.num_inliers,
+            "rotation_err": err_R, "translation_err": err_t,
+            "ms_per_pair": statistics.median(times), "ms_samples": times,
+            "split_ms": {k: 1e3 * statistics.median(s[k] for s in splits) for k in splits[0]},
+            "kernel_launches_per_pair": {k: v for k, v in counts.items() if v},
+            "device_launches_per_pair": on_device["cuda_kernel_launches"],
+            "device_busy_ms": on_device["device_busy_ms"],
+            "by_kernel_ms": on_device["by_kernel_ms"],
+        }
+    emit("frame_pair", width=CAM.width, height=CAM.height, max_features=MAX_FEATURES,
+         max_corr=MAX_FEATURES, detection_card_vs_cpu=detection, modes=out)
+    return counts_by_mode
+
+
+# Configuration 4's backend over a rendered sequence: the JAX package's SLAM
+# test holds 12 frames at 160x120 to 1 cm ATE after the pose graph; here 32
+# frames at 640x480, a keyframe at least every 4th frame (as that test takes
+# it) so that loop candidates exist. Every loop candidate is verified by one
+# config-4 track: 5 + 7 + 10 fused steps.
+SLAM_FRAMES = 32
+SLAM_ATE_TOL_M = 0.01
+SLAM_STEPS = 22
+PCG_VS_DENSE_TOL = 1e-4
+
+
+def phase_slam():
+    """The SLAM model at 640x480 with configuration 4's ICP and pose graph:
+    track 32 frames (host depth in), then ``optimize()``: ICP-verified loop
+    closures and the keyframe pose graph. Returns the launch counts of the
+    backend (the main path of loop verification)."""
+    import dataclasses
+
+    c4 = load_yaml_config(_ROOT / "configs" / "config4_pose_graph.yaml")
+    cfg = PipelineConfig(icp=c4.icp, pose_graph=c4.pose_graph,
+                         keyframe=KeyframeConfig(max_interval=4))
+    poses_gt, depths, _ = synthetic_sequence(CAM, generator(51), SLAM_FRAMES,
+                                             motion_scale=0.008, device=DEV)
+    depths_np = [d.cpu().numpy() for d in depths]
+    gt = poses_gt.cpu().numpy()
+
+    warm = Slam(CAM, cfg)  # warm-up: loads every library kernel the path uses
+    for d in depths_np[:6]:
+        warm.track(d)
+    warm.optimize()
+    slam = Slam(CAM, cfg)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for d in depths_np:
+        slam.track(d)
+    torch.cuda.synchronize()
+    track_s = time.perf_counter() - t0
+    expect_launches(_build.launch_counts(), {"icp_assoc_jtj_jtr": (SLAM_FRAMES - 1) * SLAM_STEPS},
+                    "slam tracking")
+    kfs = slam.odo.keyframes
+    candidates = pose_graph.loop_candidates(kfs, 0.5, 3, 20)  # detect_loop_closures' defaults
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    traj = slam.optimize()
+    optimize_ms = (time.perf_counter() - t0) * 1e3
+    counts = _build.launch_counts()
+    expect_launches(counts, {"icp_assoc_jtj_jtr": SLAM_STEPS * len(candidates)}, "slam optimize")
+
+    # The same backend in its two parts, on the same keyframes.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loops = pose_graph.detect_loop_closures(slam.odo)
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    graph = pose_graph.keyframe_graph(slam.odo, loops, cfg.pose_graph)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T_opt, costs = pose_graph.optimize_pose_graph(*graph, cfg.pose_graph)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3
+
+    def centers(T):
+        return -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+
+    ate = ate_rmse(centers(traj), centers(gt))
+    ate_odometry = ate_rmse(centers(slam.trajectory), centers(gt))
+    if not np.isfinite(traj).all() or traj.shape != (SLAM_FRAMES, 4, 4) or not ate < SLAM_ATE_TOL_M:
+        raise AssertionError(f"slam: ATE {ate} m")
+    if len(loops) < 1:
+        raise AssertionError(f"slam: no loop verified among {len(candidates)} candidates")
+    # The two solvers on the same graph; reruns bit-equal (no float atomics);
+    # nothing in the pose graph waits for the stream.
+    pcg = dataclasses.replace(cfg.pose_graph, solver="pcg")
+    dense = dataclasses.replace(cfg.pose_graph, solver="dense")
+    pcg_vs_dense = float((pose_graph.optimize_pose_graph(*graph, pcg)[0]
+                          - pose_graph.optimize_pose_graph(*graph, dense)[0]).abs().max())
+    if not pcg_vs_dense <= PCG_VS_DENSE_TOL:
+        raise AssertionError(f"slam: pcg and dense differ by {pcg_vs_dense}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        reruns = [pose_graph.optimize_pose_graph(*graph, s) for s in (cfg.pose_graph, pcg)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = [pose_graph.optimize_pose_graph(*graph, s) for s in (cfg.pose_graph, pcg)]
+    if not torch.equal(reruns[0][0], T_opt) or not all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(reruns, again)):
+        raise AssertionError("slam: two runs of optimize_pose_graph differ")
+    on_device = device_summary(profile_device(
+        lambda: pose_graph.optimize_pose_graph(*graph, cfg.pose_graph)))
+    emit("slam", frames=SLAM_FRAMES, width=CAM.width, height=CAM.height,
+         icp=vars(cfg.icp), pose_graph=vars(cfg.pose_graph), keyframe=vars(cfg.keyframe),
+         track_frames_per_s=SLAM_FRAMES / track_s,
+         optimize_ms=optimize_ms, loop_detection_ms=loop_ms, pose_graph_ms=graph_ms,
+         keyframes=len(kfs), candidates=len(candidates), accepted_loops=len(loops),
+         loops=[(a, b, ov) for a, b, _, ov in loops],
+         ate_m=ate, ate_odometry_only_m=ate_odometry,
+         costs_first_last=[float(costs[0]), float(costs[-1])],
+         pcg_vs_dense_max_diff=pcg_vs_dense,
+         icp_assoc_jtj_jtr_launches={"track": (SLAM_FRAMES - 1) * SLAM_STEPS,
+                                     "optimize": counts["icp_assoc_jtj_jtr"]},
+         pose_graph_device_launches=on_device["cuda_kernel_launches"],
+         pose_graph_device_busy_ms=on_device["device_busy_ms"])
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # The measurement harness: tools/msac_opt.py and tools/roofline.py, T1-T6
 # ---------------------------------------------------------------------------
 
@@ -2095,6 +2369,8 @@ def main():
     phase_stages_2d3d(pts, obs, ms_2d3d, records)
     phase_adaptive(p, q, T_gt)
     phase_reference()
+    phase_frame_pair()
+    phase_slam()
 
     # Launches on each kernel's own main path, each counted from zero: the
     # 3D-3D estimates for K1-K3, the 2D-3D estimates for K5, the synchronous

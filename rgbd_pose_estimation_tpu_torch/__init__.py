@@ -6,33 +6,47 @@ function is found at once. It imports ``torch``, ``numpy`` and the standard
 library only: never ``jax``, and nothing of the JAX package.
 
 Ported so far (the RANSAC frame-pair estimators — 3D-3D, 2D-3D through
-P3P, point+normal — and dense projective ICP with the dense odometry
-server):
+P3P, point+normal — with the feature front-end and the frame-pair model;
+dense projective ICP with the dense odometry server; loop closure, the
+keyframe pose graph and the SLAM model without its bundle-adjustment
+branch; trajectory evaluation):
 
-- ``core``    — SO(3)/SE(3) exponentials and logarithms, composition,
-                inverse, apply, adjoint, quaternions; the pinhole camera;
-                masked closed-form cubic and quartic roots.
-- ``solvers`` — 3D-3D absolute orientation (Kabsch/Umeyama/Horn), P3P,
-                N-point PnP (DLT and Gauss-Newton refinement), the
-                point+normal minimal solvers.
-- ``ransac``  — PROSAC sampling, ``estimate_pose_3d3d`` and
-                ``estimate_pose_2d3d`` (+ adaptive), and
-                ``estimate_pose_3d3d_normals``.
-- ``icp``     — ``make_icp_frame`` and ``icp_track`` (coarse-to-fine
-                point-to-plane ICP, nearest or bilinear association,
-                strides, re-association schedule, photometric rows).
-- ``models``  — ``DenseOdometry`` (frame-to-keyframe; ``process`` and the
-                pipelined ``process_stream``).
-- ``ops``     — the hand-written CUDA kernels (minimal-set moments, fused
-                quad-form MSAC ranking, exact 3D-3D MSAC scoring, 2D-3D
-                reprojection MSAC scoring, the ICP normal equations), each
-                beside its plain PyTorch version.
-- ``data``    — depth-image geometry (vertex/normal maps, pyramids,
-                sampling), synthetic correspondence problems and
-                analytically raycast RGB-D sequences.
-- ``utils``   — configs, the metrics logger and the converters that carry
-                configuration, inputs, state and results between the two
-                packages.
+- ``core``     — SO(3)/SE(3) exponentials and logarithms, composition,
+                 inverse, apply, adjoint, quaternions; the pinhole camera;
+                 masked closed-form cubic and quartic roots.
+- ``solvers``  — 3D-3D absolute orientation (Kabsch/Umeyama/Horn), P3P,
+                 N-point PnP (DLT and Gauss-Newton refinement), the
+                 point+normal minimal solvers.
+- ``ransac``   — PROSAC sampling, ``estimate_pose_3d3d`` and
+                 ``estimate_pose_2d3d`` (+ adaptive), and
+                 ``estimate_pose_3d3d_normals``.
+- ``features`` — FAST-9 + rotated-BRIEF detection on the device
+                 (``tpu_detect``), host OpenCV ORB (``cv2`` imported only
+                 when called), Hamming matching on the device, and the host
+                 steps from matches to correspondences (``frontend``).
+- ``icp``      — ``make_icp_frame``, ``icp_track`` (coarse-to-fine
+                 point-to-plane ICP, nearest or bilinear association,
+                 strides, re-association schedule, photometric rows) and
+                 ``icp_track_batch``.
+- ``graph``    — SE(3) pose-graph Gauss-Newton (dense Cholesky or
+                 block-Jacobi PCG), loop candidates and their ICP
+                 verification, the corrected trajectory.
+- ``models``   — ``FramePairEstimator`` (configurations 1-2),
+                 ``DenseOdometry`` (frame-to-keyframe; ``process`` and the
+                 pipelined ``process_stream``) and ``Slam`` (odometry → loop
+                 closure → pose graph).
+- ``eval``     — ATE after Umeyama alignment, RPE, TUM trajectory files and
+                 timestamp association, the metrics summary.
+- ``ops``      — the hand-written CUDA kernels (minimal-set moments, fused
+                 quad-form MSAC ranking, exact 3D-3D MSAC scoring, 2D-3D
+                 reprojection MSAC scoring, the ICP normal equations), each
+                 beside its plain PyTorch version.
+- ``data``     — depth-image geometry (vertex/normal maps, pyramids,
+                 sampling), synthetic correspondence problems and
+                 analytically raycast RGB-D sequences.
+- ``utils``    — configs, the metrics logger and the converters that carry
+                 configuration, inputs, state and results between the two
+                 packages.
 
 Design rules:
 

@@ -231,3 +231,24 @@ def icp_track(
             fresh = not use_carry or i % reassoc == 0
             T, stats, assoc = step(T, None if fresh else assoc)
     return T, stats
+
+
+def icp_track_batch(
+    cam: CameraIntrinsics,
+    cfg: IcpConfig,
+    T_init: torch.Tensor,  # (B, 4, 4)
+    src: IcpFrame,  # leaves stacked along a leading batch axis
+    tgt: IcpFrame,
+):
+    """:func:`icp_track` over B frame pairs, whose frames come as one
+    ``IcpFrame`` each with leaves stacked along a leading axis (the
+    reference's ``vmap`` layout). Returns ``(T (B, 4, 4), stats (B, 2))``;
+    nothing is read back. The pairs are tracked one after the other: each
+    Gauss-Newton step of each pair is its own launch of the fused step.
+    """
+
+    def pair(frame: IcpFrame, b: int) -> IcpFrame:
+        return IcpFrame(*(tuple(level[b] for level in leaves) for leaves in frame))
+
+    out = [icp_track(cam, cfg, T_init[b], pair(src, b), pair(tgt, b)) for b in range(T_init.shape[0])]
+    return torch.stack([T for T, _ in out]), torch.stack([s for _, s in out])

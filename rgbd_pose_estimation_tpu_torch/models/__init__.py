@@ -1,3 +1,5 @@
+from rgbd_pose_estimation_tpu_torch.models.frame_pair import FramePairEstimator
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry, Keyframe
+from rgbd_pose_estimation_tpu_torch.models.slam import Slam
 
-__all__ = ["DenseOdometry", "Keyframe"]
+__all__ = ["FramePairEstimator", "DenseOdometry", "Keyframe", "Slam"]

@@ -102,12 +102,33 @@ def camera_from_reference(cam) -> CameraIntrinsics:
 
 def icp_frame_from_reference(frame, device) -> IcpFrame:
     """An ``IcpFrame`` of the JAX package (per-level vertex, normal and photo
-    maps as arrays) → the port's ``IcpFrame`` of tensors on ``device``."""
+    maps as arrays) → the port's ``IcpFrame`` of tensors on ``device``.
+    A frame whose leaves are stacked along a leading batch axis (the
+    layout of ``icp_track_batch``) converts the same way."""
     return IcpFrame(
         vertices=to_torch(tuple(frame.vertices), device),
         normals=to_torch(tuple(frame.normals), device),
         photo=to_torch(tuple(frame.photo), device),
     )
+
+
+def keyframes_from_reference(keyframes, device) -> list:
+    """The JAX package's ``Keyframe`` list (of ``DenseOdometry`` or built by
+    hand) → the port's ``Keyframe`` list: the same indices, host poses and
+    cached descriptors, each pyramid as tensors on ``device``, the
+    association mass as a float."""
+    from rgbd_pose_estimation_tpu_torch.models.odometry import Keyframe
+
+    return [
+        Keyframe(
+            index=kf.index,
+            pose=np.array(kf.pose, np.float32),
+            frame=icp_frame_from_reference(kf.frame, device),
+            descriptor=None if kf.descriptor is None else np.array(kf.descriptor),
+            ref_weight=None if kf.ref_weight is None else float(kf.ref_weight),
+        )
+        for kf in keyframes
+    ]
 
 
 def result_to_numpy(result) -> dict:

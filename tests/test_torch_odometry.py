@@ -1,6 +1,7 @@
 """models/odometry.py of the PyTorch port against the JAX package's
 ``DenseOdometry``, frame by frame on the CPU, and the port's pipelined server
-against its synchronous one.
+against its synchronous one; then ``models/slam.py::Slam``, loop closure and
+``icp_track_batch`` against the JAX package's on the same frames.
 
 80x60 frames, two levels, two tracking settings in all (unstrided and
 strided): the JAX side compiles one track and one frame builder for each.
@@ -8,6 +9,7 @@ The sequence is rendered once by the JAX package and fed to both as numpy.
 """
 
 import json
+import types
 
 import jax
 import numpy as np
@@ -16,14 +18,23 @@ import torch
 
 from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics as JCamera
 from rgbd_pose_estimation_tpu.data import synthetic as jsyn
+from rgbd_pose_estimation_tpu.graph import pose_graph as jpose_graph
+from rgbd_pose_estimation_tpu.icp import dense as jdense
 from rgbd_pose_estimation_tpu.models.odometry import DenseOdometry as JDenseOdometry
+from rgbd_pose_estimation_tpu.models.slam import Slam as JSlam
 from rgbd_pose_estimation_tpu.utils.config import IcpConfig as JIcpConfig
 from rgbd_pose_estimation_tpu.utils.config import KeyframeConfig as JKeyframeConfig
+from rgbd_pose_estimation_tpu.utils.config import PipelineConfig as JPipelineConfig
+from rgbd_pose_estimation_tpu_torch.graph.pose_graph import detect_loop_closures
+from rgbd_pose_estimation_tpu_torch.icp.dense import icp_track, icp_track_batch
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry, Keyframe
+from rgbd_pose_estimation_tpu_torch.models.slam import Slam
 from rgbd_pose_estimation_tpu_torch.utils.config import KeyframeConfig
 from rgbd_pose_estimation_tpu_torch.utils.convert import (
     camera_from_reference,
     config_from_reference,
+    icp_frame_from_reference,
+    keyframes_from_reference,
 )
 from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
 
@@ -245,3 +256,118 @@ def test_keyframe_and_metrics_plumbing(tmp_path, sequence):
     lines = [json.loads(x) for x in path.read_text().splitlines()]
     assert [r["frame"] for r in lines] == [7, 8] and lines[0]["keyframe"] is True
     assert 0.0 < lines[1]["overlap"] <= 1.0
+
+
+# --- Slam and loop closure (configuration 4's backend) on the same frames ----
+# Every frame a keyframe, so that five keyframes give one loop candidate
+# (keyframes 0 and 4, min_gap 3). The JAX side compiles only icp_track_batch
+# (two settings, the batch padded to 4) and optimize_pose_graph anew.
+
+SLAM_KF = JKeyframeConfig(max_interval=1)
+# Config 3's finest-level stride in a two-level pyramid, with its re-association.
+ICP_STRIDE4 = JIcpConfig(levels=2, iters_per_level=(3, 4), source_stride=(4, 4), reassoc_every=2)
+LOOP_ATOL = 1e-3  # T_rel and overlap of a verification track: two chained ICP tracks' agreement
+
+
+@pytest.fixture(scope="module")
+def slam_runs(sequence):
+    """Both packages' Slam over the sequence: (reference, port, trajectories)."""
+    _, depths, intens = sequence
+    jcfg = JPipelineConfig(icp=ICP, keyframe=SLAM_KF)
+    ref = JSlam(JCAM, jcfg)
+    port = Slam(CAM, config_from_reference(jcfg), device="cpu")
+    for d, g in zip(depths, intens):
+        ref.track(d, gray=g)
+        port.track(d, gray=g)
+    return ref, port, ref.optimize(), port.optimize()
+
+
+def _loop_view(ref_odo, icp):
+    """The reference server's keyframes as the port's, for the port's
+    detect_loop_closures (which reads keyframes, cam and icp_cfg)."""
+    return types.SimpleNamespace(
+        keyframes=keyframes_from_reference(ref_odo.keyframes, "cpu"),
+        cam=camera_from_reference(ref_odo.cam), icp_cfg=config_from_reference(icp))
+
+
+def test_slam_matches_reference(sequence, slam_runs):
+    poses_gt, _, _ = sequence
+    ref, port, traj_ref, traj = slam_runs
+    assert traj.shape == (FRAMES, 4, 4) and traj.dtype == np.float32
+    np.testing.assert_allclose(traj, traj_ref, atol=1e-3)
+    assert [k.index for k in port.odo.keyframes] == [k.index for k in ref.odo.keyframes]
+    np.testing.assert_allclose(port.trajectory, ref.trajectory, atol=POSE_ATOL)
+    # The backend closed the loop, and the result stays on the rendered poses.
+    assert [(a, b) for a, b, *_ in detect_loop_closures(port.odo)] == [(0, 4)]
+    assert np.abs(traj - poses_gt).max() < TRUTH_TOL
+
+
+def test_slam_bundle_adjust_waits_for_ba(sequence, slam_runs):
+    """BA is not ported: with the gray images kept it raises
+    NotImplementedError; without them the reference's ValueError comes first."""
+    _, port, _, _ = slam_runs
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        port.optimize(bundle_adjust=True)
+    _, depths, _ = sequence
+    bare = Slam(CAM, port.cfg, keep_images=False, device="cpu")
+    bare.track(depths[0])
+    bare.track(depths[1])
+    with pytest.raises(ValueError, match="requires gray images"):
+        bare.optimize(bundle_adjust=True)
+    assert bare.optimize().shape == (2, 4, 4)
+
+
+def test_detect_loop_closures_matches_reference(slam_runs):
+    """On the reference's own keyframes (converted): the same accepted pairs,
+    T_rel and overlap to 1e-3."""
+    ref, _, _, _ = slam_runs
+    loops_ref = jpose_graph.detect_loop_closures(ref.odo)
+    loops = detect_loop_closures(_loop_view(ref.odo, ICP))
+    assert [(a, b) for a, b, *_ in loops] == [(a, b) for a, b, *_ in loops_ref] == [(0, 4)]
+    for (_, _, T, ov), (_, _, T_r, ov_r) in zip(loops, loops_ref):
+        np.testing.assert_allclose(T, T_r, atol=LOOP_ATOL)
+        assert abs(ov - ov_r) < LOOP_ATOL and ov > 0.3
+
+
+def test_icp_track_batch_matches_reference(slam_runs):
+    """The batch of four (pairs the reference's loop detection tracks) against
+    the reference's vmapped batch, pair by pair; and each pair of the batch
+    equals its own icp_track."""
+    ref, _, _, _ = slam_runs
+    kfs = ref.odo.keyframes
+    pairs = [(0, 4), (0, 3), (1, 4), (2, 4)]
+    T0 = np.stack([kfs[a].pose @ np.linalg.inv(kfs[b].pose) for a, b in pairs]).astype(np.float32)
+    stack = lambda frames: jax.tree.map(lambda *xs: jax.numpy.stack(xs, 0), *frames)
+    src = stack([kfs[b].frame for _, b in pairs])
+    tgt = stack([kfs[a].frame for a, _ in pairs])
+    T_ref, stats_ref = (np.asarray(x) for x in jdense.icp_track_batch(JCAM, ICP, T0, src, tgt))
+    cfg = config_from_reference(ICP)
+    args = (torch.from_numpy(T0), icp_frame_from_reference(src, "cpu"), icp_frame_from_reference(tgt, "cpu"))
+    T, stats = icp_track_batch(CAM, cfg, *args)
+    assert T.shape == (4, 4, 4) and stats.shape == (4, 2)
+    np.testing.assert_allclose(T.numpy(), T_ref, atol=2e-4)
+    np.testing.assert_allclose(stats.numpy(), stats_ref, rtol=2e-3)
+    one = icp_frame_from_reference(jax.tree.map(lambda x: x[2], src), "cpu")
+    T2, s2 = icp_track(CAM, cfg, args[0][2], one, icp_frame_from_reference(jax.tree.map(lambda x: x[2], tgt), "cpu"))
+    assert torch.equal(T2, T[2]) and torch.equal(s2, stats[2])
+
+
+def test_overlap_ratio_under_source_stride_rejects_every_loop(slam_runs):
+    """A fault of the reference, ported as it is: loop acceptance divides the
+    verification track's weight sum over the STRIDED sample by the
+    full-resolution count of valid normals, so at config 3's finest stride of
+    4 the overlap of a true loop is ~1/16, under min_overlap 0.3, and no loop
+    passes, in both packages."""
+    ref, _, _, _ = slam_runs
+    ref.odo.icp_cfg = ICP_STRIDE4
+    try:
+        seen_ref = jpose_graph.detect_loop_closures(ref.odo, min_overlap=0.0)
+        accepted_ref = jpose_graph.detect_loop_closures(ref.odo)
+    finally:
+        ref.odo.icp_cfg = ICP
+    view = _loop_view(ref.odo, ICP_STRIDE4)
+    seen = detect_loop_closures(view, min_overlap=0.0)
+    assert [(a, b) for a, b, *_ in seen] == [(a, b) for a, b, *_ in seen_ref] == [(0, 4)]
+    assert abs(seen[0][3] - seen_ref[0][3]) < LOOP_ATOL and 0.03 < seen[0][3] < 0.1
+    np.testing.assert_allclose(seen[0][2], seen_ref[0][2], atol=LOOP_ATOL)
+    assert detect_loop_closures(view) == accepted_ref == []

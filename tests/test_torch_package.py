@@ -29,13 +29,16 @@ import rgbd_pose_estimation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 33, names
+assert len(names) >= 45, names
 for new in ("core.poly", "solvers.p3p", "solvers.pnp", "solvers.normals",
-            "ops.msac_variants", "ops.ceilings", "tools.roofline", "tools.msac_opt"):
+            "ops.msac_variants", "ops.ceilings", "tools.roofline", "tools.msac_opt",
+            "features.tpu_detect", "features.frontend", "models.frame_pair", "models.slam",
+            "graph.pose_graph", "eval.ate", "eval.traj_io", "eval.report"):
     assert pkg.__name__ + "." + new in names, new
 # "tools" is the JAX repository's harness directory: the port's own tools
-# live in its package and import nothing of it.
-for banned in ("jax", "jaxlib", "rgbd_pose_estimation_tpu", "triton", "tools"):
+# live in its package and import nothing of it. cv2 is imported by host ORB
+# detection alone, when it is called.
+for banned in ("jax", "jaxlib", "rgbd_pose_estimation_tpu", "triton", "tools", "cv2"):
     assert banned not in sys.modules, banned
 import torch
 assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -46,8 +49,8 @@ print("ok", len(names))
 def test_imports_without_jax_or_triton():
     """A fresh interpreter imports the port and every sub-module, its
     measurement tools included; neither JAX, nor the JAX package, nor the
-    JAX repository's tools, nor triton is loaded by that, and no kernel is
-    built (there is no compiler here to build one)."""
+    JAX repository's tools, nor triton, nor cv2 is loaded by that, and no
+    kernel is built (there is no compiler here to build one)."""
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_PROBE],
         cwd=_REPO, capture_output=True, text=True, timeout=120,
