@@ -28,6 +28,12 @@ through the launch counters that each path went through its kernels:
 - the keyframe SLAM model ``Slam`` (configuration 4's backend) over 32
   frames at 640x480: tracking, ICP-verified loop closures and the pose graph
   (``slam``);
+- configuration 5 on one card (``ba``): a 64-frame 640x480 TUM-format
+  sequence written to disk and read back through the port's readers and
+  prefetcher, ``Slam.optimize(bundle_adjust=True)`` over it (loop closure,
+  the pose graph, the BA build and the Schur-complement solve), then
+  ``ba_solve`` at O = 98,304 observations (cost, truth, bit-equal reruns,
+  card against CPU, no wait for the stream);
 - the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
   of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
   T6 against their plain versions, then the msac timing table at K = 4096
@@ -1968,6 +1974,271 @@ def phase_slam():
     return counts
 
 
+# Phase ba: configuration 5 on one card. A TUM-format sequence written to disk,
+# read back through the port's readers, tracked by Slam and optimised with
+# loop closure, the pose graph and bundle adjustment; then ba_solve at the
+# size the reference sized its reductions for (ba/schur.py of the JAX
+# package measured its slot tables at O = 98,304).
+BA_FRAMES = 64
+BA_SIZE = (640, 480)
+BA_SEED = 61
+BA_ATE_TOL_M = 0.02  # the JAX package's own BA bound (tests/unit/test_slam_model.py)
+BA_PROBLEM = dict(num_cameras=64, num_points=24576, obs_per_point=4)  # O = 98,304
+BA_PROBLEM_SEED = 7
+# Noise-free observations: the reference's ba_solve brings this very problem
+# (drawn from a CPU torch.Generator seeded 7, config 5's iterations) to
+# 1.79e-7 of the truth on the CPU; the gate allows two f32 ulps of the
+# poses' largest entries (~3.1), 4.8e-7, for the card's summation order.
+BA_TRUTH_TOL = 4.8e-7
+# One ba_step on the card against the same step on the CPU: the CPU parity
+# tests' tolerances (tests/test_torch_ba.py).
+BA_STEP_COST_RTOL, BA_STEP_ATOL = 1e-5, 1e-4
+
+
+def ba_data(root):
+    """Part 1: write the sequence, read it back through ``TumSequence`` and
+    ``sequence_prefetcher``; frames bit-equal to the render quantised as the
+    writer quantises it. Returns the camera, the sequence, the frames and
+    the timings."""
+    from rgbd_pose_estimation_tpu_torch.data import native_loader, png, tum
+    from rgbd_pose_estimation_tpu_torch.data.prefetch import sequence_prefetcher
+
+    t0 = time.perf_counter()
+    cam = tum.write_synthetic_tum(root, n_frames=BA_FRAMES, size=BA_SIZE, motion_scale=0.008,
+                                  seed=BA_SEED, device=DEV)
+    write_s = time.perf_counter() - t0
+    seq = tum.TumSequence(root)
+    decoder = native_loader.decoder_name()
+    if len(seq) != BA_FRAMES:
+        raise AssertionError(f"ba: {len(seq)} frames associated, wrote {BA_FRAMES}")
+    # The native decoder, where it built, against the stdlib codec bit for bit.
+    if decoder == "native":
+        for sub, files in (("gray", seq.rgb_files), ("depth", seq.depth_files)):
+            path = str(pathlib.Path(root) / files[BA_FRAMES // 2])
+            stdlib = png.read_png(path)
+            native = (native_loader.decode_gray8(path) if sub == "gray"
+                      else native_loader.decode_depth16(path))
+            if not np.array_equal(png.to_gray8(stdlib) if sub == "gray" else stdlib, native):
+                raise AssertionError(f"ba: stdlib and native decoders differ on a {sub} frame")
+    t0 = time.perf_counter()
+    for i in range(len(seq)):
+        seq.frame(i)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(seq)
+    t0 = time.perf_counter()
+    frames = list(sequence_prefetcher(seq, 0, len(seq)))
+    prefetch_fps = len(frames) / (time.perf_counter() - t0)
+    _, depths, intens = tum.render_synthetic(cam, BA_FRAMES, 0.008, BA_SEED, device=DEV)
+    for i, (_, gray, depth) in enumerate(frames):
+        if not (np.array_equal(gray, tum.quantize_gray8(intens[i]).astype(np.float32) / 255.0)
+                and np.array_equal(depth, tum.quantize_depth16(depths[i]).astype(np.float32)
+                                   * seq.depth_scale)):
+            raise AssertionError(f"ba: frame {i} read back differs from the quantised render")
+    timing = {"decoder": decoder, "write_s": write_s, "decode_ms_per_frame": decode_ms,
+              "prefetch_frames_per_s": prefetch_fps}
+    return cam, seq, frames, timing
+
+
+def ba_slam(cam, seq, frames):
+    """Part 2: ``Slam`` with BA over the frames read back, config 4's
+    tracking and pose graph, config 5's BA and front-end size."""
+    import dataclasses
+
+    from rgbd_pose_estimation_tpu_torch.ba.build import (
+        build_ba_problem,
+        detect_keyframe_features,
+        match_keyframe_pairs,
+    )
+    from rgbd_pose_estimation_tpu_torch.ba.schur import ba_step, reduction_slots, reprojection_rmse
+    from rgbd_pose_estimation_tpu_torch.models.slam import refine_keyframes
+
+    c4 = load_yaml_config(_ROOT / "configs" / "config4_pose_graph.yaml")
+    c5 = load_yaml_config(_ROOT / "configs" / "config5_distributed_ba.yaml")
+    # The card's machine has no cv2, so config 5's host ORB cannot run there:
+    # the on-device FAST+BRIEF detector at config 5's max_features.
+    cfg = PipelineConfig(icp=c4.icp, pose_graph=c4.pose_graph,
+                         keyframe=KeyframeConfig(max_interval=4), ba=c5.ba,
+                         frontend=dataclasses.replace(c5.frontend, detector="tpu"))
+    warm = Slam(cam, cfg, device=DEV)  # warm-up: every library kernel and the BA path once
+    for _, g, d in frames[:6]:
+        warm.track(d, gray=g)
+    warm.optimize(bundle_adjust=True)
+
+    slam = Slam(cam, cfg, device=DEV)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _, g, d in frames:
+        slam.track(d, gray=g)
+    torch.cuda.synchronize()
+    track_s = time.perf_counter() - t0
+    kfs = slam.odo.keyframes
+    candidates = pose_graph.loop_candidates(kfs, 0.5, 3, 20)  # detect_loop_closures' defaults
+    t0 = time.perf_counter()
+    traj = slam.optimize(bundle_adjust=True)
+    optimize_ms = (time.perf_counter() - t0) * 1e3
+    expect_launches(_build.launch_counts(),
+                    {"icp_assoc_jtj_jtr": SLAM_STEPS * (BA_FRAMES - 1 + len(candidates))},
+                    "ba: slam track + optimize(bundle_adjust=True)")
+    report = slam.ba_report
+    info = report["info"]
+
+    # The backend in its parts, on the same keyframes, each synchronised.
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    loops, loop_ms = timed(lambda: pose_graph.detect_loop_closures(slam.odo))
+    graph = pose_graph.keyframe_graph(slam.odo, loops, cfg.pose_graph)
+    _, graph_ms = timed(lambda: pose_graph.optimize_pose_graph(*graph, cfg.pose_graph))
+    kf_idx = [k.index for k in kfs]
+    grays = [slam._grays[i] for i in kf_idx]
+    depths = [slam._depths[i] for i in kf_idx]
+    M = cfg.frontend.max_features
+    (_, desc, valid, _), detect_ms = timed(
+        lambda: detect_keyframe_features(grays, depths, M, "tpu", device=DEV))
+    pairs = [(i, i + 1) for i in range(len(kfs) - 1)]
+    _, match_ms = timed(lambda: match_keyframe_pairs(desc, valid, pairs, device=DEV))
+    kf_poses = report["pose_graph_trajectory"][kf_idx]
+    (prob, info2), build_ms = timed(lambda: build_ba_problem(cam, grays, depths, kf_poses,
+                                                             max_features=M, detector="tpu",
+                                                             device=DEV))
+    _, solve_ms = timed(lambda: refine_keyframes(prob, cfg.ba))
+    if info2 != info:
+        raise AssertionError(f"ba: a second build differs: {info2} vs {info}")
+
+    def centers(T):
+        return -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+
+    _, gt = seq.groundtruth_aligned()
+    ate = ate_rmse(centers(traj), centers(gt))
+    ate_pose_graph = ate_rmse(centers(report["pose_graph_trajectory"]), centers(gt))
+    solved = report["solved"]
+    # A step with the odometry priors waits for the stream no more than one
+    # without (part 3).
+    slots = reduction_slots(solved)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ba_step(solved, cfg.ba, *slots)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rmse_before = float(reprojection_rmse(report["problem"]._replace(w=solved.w)))
+    rmse_after = float(reprojection_rmse(solved))
+    costs = report["costs"].cpu().numpy()
+    if not np.isfinite(traj).all() or traj.shape != (BA_FRAMES, 4, 4):
+        raise AssertionError(f"ba: trajectory {traj.shape}, finite {np.isfinite(traj).all()}")
+    if not ate < BA_ATE_TOL_M:
+        raise AssertionError(f"ba: ATE with BA {ate} m")
+    if not rmse_after < rmse_before:
+        raise AssertionError(f"ba: reprojection RMSE {rmse_before} -> {rmse_after}")
+    if len(loops) < 1:
+        raise AssertionError(f"ba: no loop verified among {len(candidates)} candidates")
+    return {
+        "frames": BA_FRAMES, "width": cam.width, "height": cam.height,
+        "detector": "tpu (config 5 names orb: host OpenCV, which the card's machine lacks)",
+        "ba": vars(cfg.ba), "icp": vars(cfg.icp), "keyframe": vars(cfg.keyframe),
+        "track_frames_per_s": BA_FRAMES / track_s, "optimize_ms": optimize_ms,
+        "split_ms": {"loop_detection": loop_ms, "pose_graph": graph_ms, "ba_detect": detect_ms,
+                     "ba_match": match_ms, "ba_tracks": build_ms - detect_ms - match_ms,
+                     "ba_build": build_ms, "ba_solve": solve_ms},
+        "keyframes": len(kfs), "candidates": len(candidates), "accepted_loops": len(loops),
+        "landmarks": info["num_landmarks"], "observations": info["num_observations"],
+        "mean_track_len": info["mean_track_len"],
+        "costs_first_last": [float(costs[0]), float(costs[-1])],
+        "reprojection_rmse_before_after": [rmse_before, rmse_after],
+        "ate_m": ate, "ate_pose_graph_only_m": ate_pose_graph,
+        "icp_assoc_jtj_jtr_launches": SLAM_STEPS * (BA_FRAMES - 1 + len(candidates)),
+    }
+
+
+def ba_large(cfg):
+    """Part 3: ``ba_solve`` at O = 98,304 on the card: cost falls, reruns
+    bit-equal, one step against the CPU, nothing waits for the stream, and
+    noise-free observations bring the poses to the truth."""
+    from rgbd_pose_estimation_tpu_torch.ba.schur import (
+        ba_solve,
+        ba_step,
+        make_synthetic_ba_problem,
+        reduction_slots,
+    )
+
+    def on_card(prob):
+        return type(prob)(*(None if x is None else x.to(DEV) for x in prob))
+
+    host, _, _ = make_synthetic_ba_problem(torch.Generator().manual_seed(BA_PROBLEM_SEED + 1),
+                                           **BA_PROBLEM, device="cpu")
+    prob = on_card(host)
+    slots = reduction_slots(prob)
+    for _ in range(2):  # warm-up
+        ba_step(prob, cfg, *slots)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out, costs = prob, []
+    for _ in range(cfg.outer_iters):
+        out, cost = ba_step(out, cfg, *slots)
+        costs.append(cost)
+    stop.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / cfg.outer_iters
+    event_ms = start.elapsed_time(stop) / cfg.outer_iters
+    costs = torch.stack(costs)
+    again, costs2 = ba_solve(prob, cfg)
+    if not (torch.equal(again.poses, out.poses) and torch.equal(again.points, out.points)
+            and torch.equal(costs2, costs)):
+        raise AssertionError("ba: two runs of ba_solve differ")
+    if not float(costs[-1]) < float(costs[0]):
+        raise AssertionError(f"ba: cost {float(costs[0])} -> {float(costs[-1])}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step, cost = ba_step(prob, cfg, *slots)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    step_cpu, cost_cpu = ba_step(host, cfg, *reduction_slots(host))
+    cost_rel = abs(float(cost) - float(cost_cpu)) / abs(float(cost_cpu))
+    state_err = max(float((step.poses.cpu() - step_cpu.poses).abs().max()),
+                    float((step.points.cpu() - step_cpu.points).abs().max()))
+    if not (cost_rel <= BA_STEP_COST_RTOL and state_err <= BA_STEP_ATOL):
+        raise AssertionError(f"ba: card vs CPU step: cost rel {cost_rel}, state {state_err}")
+    on_device = device_summary(profile_device(lambda: ba_step(prob, cfg, *slots)))
+
+    clean, T_gt, _ = make_synthetic_ba_problem(torch.Generator().manual_seed(BA_PROBLEM_SEED),
+                                               **BA_PROBLEM, pixel_noise=0.0, device="cpu")
+    solved, _ = ba_solve(on_card(clean), cfg)
+    truth_err = float((solved.poses.cpu() - T_gt).abs().max())
+    if not truth_err <= BA_TRUTH_TOL:
+        raise AssertionError(f"ba: noise-free poses {truth_err} from the truth (bound {BA_TRUTH_TOL})")
+    return {
+        "O": int(prob.cam_idx.shape[0]), "C": int(prob.poses.shape[0]), "L": int(prob.points.shape[0]),
+        "outer_iters": cfg.outer_iters, "cg_iters": cfg.cg_iters,
+        "ms_per_outer_step_events": event_ms, "ms_per_outer_step_host": host_ms,
+        "costs_first_last": [float(costs[0]), float(costs[-1])],
+        "step_card_vs_cpu": {"cost_rel": cost_rel, "max_abs_state": state_err},
+        "noise_free_pose_err": truth_err, "noise_free_bound": BA_TRUTH_TOL,
+        "step_device_launches": on_device["cuda_kernel_launches"],
+        "step_device_busy_ms": on_device["device_busy_ms"],
+        "step_by_kernel_ms": on_device["by_kernel_ms"],
+    }
+
+
+def phase_ba():
+    """Configuration 5 on one card: data, Slam with BA, the large solve."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tum_")
+    try:
+        cam, seq, frames, data = ba_data(root)
+        slam = ba_slam(cam, seq, frames)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    c5 = load_yaml_config(_ROOT / "configs" / "config5_distributed_ba.yaml")
+    emit("ba", data=data, slam=slam, solve=ba_large(c5.ba))
+
+
 # ---------------------------------------------------------------------------
 # The measurement harness: tools/msac_opt.py and tools/roofline.py, T1-T6
 # ---------------------------------------------------------------------------
@@ -2371,6 +2642,7 @@ def main():
     phase_reference()
     phase_frame_pair()
     phase_slam()
+    phase_ba()
 
     # Launches on each kernel's own main path, each counted from zero: the
     # 3D-3D estimates for K1-K3, the 2D-3D estimates for K5, the synchronous

@@ -8,8 +8,8 @@ library only: never ``jax``, and nothing of the JAX package.
 Ported so far (the RANSAC frame-pair estimators — 3D-3D, 2D-3D through
 P3P, point+normal — with the feature front-end and the frame-pair model;
 dense projective ICP with the dense odometry server; loop closure, the
-keyframe pose graph and the SLAM model without its bundle-adjustment
-branch; trajectory evaluation):
+keyframe pose graph, bundle adjustment and the SLAM model; the TUM and
+ICL-NUIM readers; trajectory evaluation):
 
 - ``core``     — SO(3)/SE(3) exponentials and logarithms, composition,
                  inverse, apply, adjoint, quaternions; the pinhole camera;
@@ -31,10 +31,13 @@ branch; trajectory evaluation):
 - ``graph``    — SE(3) pose-graph Gauss-Newton (dense Cholesky or
                  block-Jacobi PCG), loop candidates and their ICP
                  verification, the corrected trajectory.
+- ``ba``       — the BA problem from keyframes (features, batched matching,
+                 union-find tracks) and the matrix-free Schur-complement
+                 Gauss-Newton step with CG, its sums in a fixed order.
 - ``models``   — ``FramePairEstimator`` (configurations 1-2),
                  ``DenseOdometry`` (frame-to-keyframe; ``process`` and the
                  pipelined ``process_stream``) and ``Slam`` (odometry → loop
-                 closure → pose graph).
+                 closure → pose graph → bundle adjustment).
 - ``eval``     — ATE after Umeyama alignment, RPE, TUM trajectory files and
                  timestamp association, the metrics summary.
 - ``ops``      — the hand-written CUDA kernels (minimal-set moments, fused
@@ -43,10 +46,14 @@ branch; trajectory evaluation):
                  beside its plain PyTorch version.
 - ``data``     — depth-image geometry (vertex/normal maps, pyramids,
                  sampling), synthetic correspondence problems and
-                 analytically raycast RGB-D sequences.
-- ``utils``    — configs, the metrics logger and the converters that carry
-                 configuration, inputs, state and results between the two
-                 packages.
+                 analytically raycast RGB-D sequences; TUM and ICL-NUIM
+                 directories (read and written), PNG decode (the native
+                 library or a standard-library codec), the prefetcher.
+- ``parallel`` — so far only the span-partition policy of the
+                 distributed layer.
+- ``utils``    — configs, the metrics logger, phase timers, checkpoints and
+                 the converters that carry configuration, inputs, state and
+                 results between the two packages.
 
 Design rules:
 

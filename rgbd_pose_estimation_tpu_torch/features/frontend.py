@@ -60,30 +60,31 @@ def match_descriptors(desc_a, valid_a, desc_b, valid_b, ratio: float = 0.8):
     """Mutual-best Hamming matching with Lowe ratio test, on the
     descriptors' device; reads nothing back.
 
-    Args: ``desc_* (M, 32) uint8``, ``valid_* (M,) bool`` tensors.
-    Returns ``(idx_b (M,) int32, good (M,), quality (M,) f32)`` — for each
-    keypoint in A its best match in B, whether it passed ratio + mutual-best
-    + validity, and a quality score (higher = more distinctive) for PROSAC.
-    Among equal distances the lower index wins, as under ``lax.top_k`` and
-    ``argmin``.
+    Args: ``desc_* (..., M, 32) uint8``, ``valid_* (..., M) bool`` tensors;
+    leading dimensions are a batch of pairs (``ba/build.py`` matches all its
+    keyframe pairs in one call). Returns ``(idx_b (..., M) int32, good
+    (..., M), quality (..., M) f32)`` — for each keypoint in A its best
+    match in B, whether it passed ratio + mutual-best + validity, and a
+    quality score (higher = more distinctive) for PROSAC. Among equal
+    distances the lower index wins, as under ``lax.top_k`` and ``argmin``.
     """
-    xa = desc_a[:, None, :] ^ desc_b[None, :, :]  # (Ma, Mb, 32)
+    xa = desc_a[..., :, None, :] ^ desc_b[..., None, :, :]  # (..., Ma, Mb, 32)
     counts = _popcount_table(xa.device)[xa.to(torch.int32)]
     ham = counts.sum(-1, dtype=torch.int32).to(torch.float32)
     big = 1e9
-    ham = torch.where(valid_a[:, None] & valid_b[None, :], ham, big)
+    ham = torch.where(valid_a[..., :, None] & valid_b[..., None, :], ham, big)
 
     # Best and second best distance in B for each A: argmin takes the first
     # minimum; the second is the minimum over the other columns.
-    idx_b = torch.argmin(ham, dim=1)
-    best = ham.gather(1, idx_b[:, None])[:, 0]
-    others = ham.scatter(1, idx_b[:, None], torch.inf)
-    second = others.min(dim=1).values
+    idx_b = torch.argmin(ham, dim=-1)
+    best = ham.gather(-1, idx_b[..., None])[..., 0]
+    others = ham.scatter(-1, idx_b[..., None], torch.inf)
+    second = others.min(dim=-1).values
     passes_ratio = best < ratio * torch.clamp(second, min=1e-6)
 
     # Mutual best: A must also be B's best.
-    best_a_for_b = torch.argmin(ham, dim=0)  # (Mb,)
-    mutual = best_a_for_b[idx_b] == torch.arange(ham.shape[0], device=ham.device)
+    best_a_for_b = torch.argmin(ham, dim=-2)  # (..., Mb)
+    mutual = best_a_for_b.gather(-1, idx_b) == torch.arange(ham.shape[-2], device=ham.device)
 
     good = passes_ratio & mutual & valid_a & (best < big * 0.5)
     quality = torch.where(good, second / torch.clamp(best, min=1.0), 0.0)

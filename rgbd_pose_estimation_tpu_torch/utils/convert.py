@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from rgbd_pose_estimation_tpu_torch.ba.schur import BAProblem
 from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
 from rgbd_pose_estimation_tpu_torch.icp.dense import IcpFrame
 from rgbd_pose_estimation_tpu_torch.utils import config as _config
@@ -129,6 +130,17 @@ def keyframes_from_reference(keyframes, device) -> list:
         )
         for kf in keyframes
     ]
+
+
+def ba_problem_from_reference(prob, device) -> BAProblem:
+    """The JAX package's ``BAProblem`` (or any NamedTuple with its fields;
+    arrays as numpy or anything ``np.asarray`` takes) → the port's, on
+    ``device``. Element types are kept; ``None`` fields (no depth, no
+    priors) stay ``None``."""
+    return BAProblem(**{
+        name: to_torch(None if getattr(prob, name) is None else np.asarray(getattr(prob, name)), device)
+        for name in BAProblem._fields
+    })
 
 
 def result_to_numpy(result) -> dict:

@@ -8,6 +8,7 @@ strided): the JAX side compiles one track and one frame builder for each.
 The sequence is rendered once by the JAX package and fed to both as numpy.
 """
 
+import dataclasses
 import json
 import types
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from rgbd_pose_estimation_tpu.ba import schur as jschur
 from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics as JCamera
 from rgbd_pose_estimation_tpu.data import synthetic as jsyn
 from rgbd_pose_estimation_tpu.graph import pose_graph as jpose_graph
@@ -25,6 +27,7 @@ from rgbd_pose_estimation_tpu.models.slam import Slam as JSlam
 from rgbd_pose_estimation_tpu.utils.config import IcpConfig as JIcpConfig
 from rgbd_pose_estimation_tpu.utils.config import KeyframeConfig as JKeyframeConfig
 from rgbd_pose_estimation_tpu.utils.config import PipelineConfig as JPipelineConfig
+from rgbd_pose_estimation_tpu_torch.eval.ate import ate_rmse
 from rgbd_pose_estimation_tpu_torch.graph.pose_graph import detect_loop_closures
 from rgbd_pose_estimation_tpu_torch.icp.dense import icp_track, icp_track_batch
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry, Keyframe
@@ -302,13 +305,41 @@ def test_slam_matches_reference(sequence, slam_runs):
     assert np.abs(traj - poses_gt).max() < TRUTH_TOL
 
 
+def _centers(T):
+    return -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+
+
 def test_slam_bundle_adjust_waits_for_ba(sequence, slam_runs):
-    """BA is not ported: with the gray images kept it raises
-    NotImplementedError; without them the reference's ValueError comes first."""
-    _, port, _, _ = slam_runs
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        port.optimize(bundle_adjust=True)
-    _, depths, _ = sequence
+    """``optimize(bundle_adjust=True)`` of both packages on the same tracked
+    frames (the same keyframes, the pose graph, then BA: build, prune,
+    priors, 10 steps): trajectories within 1e-3, both on the rendered poses
+    (ATE < 2 cm, the JAX package's own BA bound). Without the gray images
+    the reference's ValueError comes first; the sharded step (``mesh=``)
+    waits for the distributed layer."""
+    poses_gt, depths, _ = sequence
+    ref, port, _, _ = slam_runs
+    # The on-device detector: host ORB finds no keypoint in 80x60 frames.
+    ref_cfg, port_cfg = ref.cfg, port.cfg
+    ref.cfg = dataclasses.replace(ref_cfg, frontend=dataclasses.replace(ref_cfg.frontend, detector="tpu"))
+    port.cfg = config_from_reference(ref.cfg)
+    try:
+        # The reference's step jitted (it runs eagerly there): one compile.
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jschur, "ba_step", jax.jit(jschur.ba_step, static_argnums=(1,)))
+            traj_ref = ref.optimize(bundle_adjust=True)
+        traj = port.optimize(bundle_adjust=True)
+    finally:
+        ref.cfg, port.cfg = ref_cfg, port_cfg
+    assert traj.shape == (FRAMES, 4, 4) and traj.dtype == np.float32
+    np.testing.assert_allclose(traj, traj_ref, atol=1e-3)
+    report = port.ba_report
+    assert report["info"]["detector"] == "tpu"
+    assert report["costs"].shape == (port.cfg.ba.outer_iters,)
+    assert report["info"]["num_landmarks"] > 10
+    for t in (traj, traj_ref):
+        assert ate_rmse(_centers(t), _centers(poses_gt)) < 0.02
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        port.optimize(bundle_adjust=True, mesh=object())
     bare = Slam(CAM, port.cfg, keep_images=False, device="cpu")
     bare.track(depths[0])
     bare.track(depths[1])
