@@ -34,6 +34,16 @@ through the launch counters that each path went through its kernels:
   the pose graph, the BA build and the Schur-complement solve), then
   ``ba_solve`` at O = 98,304 observations (cost, truth, bit-equal reruns,
   card against CPU, no wait for the stream);
+- the command line a user starts the system with, ``cli/main.py``'s
+  ``main(argv)`` in this process (``cli``): ``synth`` writes a 64-frame
+  640x480 directory, then ``pair`` (configurations 1 and 2), ``odom`` with
+  the pose graph (configuration 3, 4's backend) and ``eval``, ``odom
+  --resume`` across its checkpoint, ``ba`` in one process (configuration 5 on
+  a 1 x 1 mesh) with ``--fail-at-iter`` and ``--resume``; each command's
+  kernel launches counted exactly;
+- ``sequence_parallel_odometry`` over the first 32 of those frames, four
+  chunks in four host threads and one after another, stitched by the anchor
+  pose graph (``sequence_parallel``);
 - the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
   of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
   T6 against their plain versions, then the msac timing table at K = 4096
@@ -1534,13 +1544,15 @@ DEVICE_NAMES = {
 }
 
 
-def profile_device(fn):
+def profile_device(fn, host_ops=True):
     """Run ``fn`` once under the profiler. Returns (kernel name, launches,
     device microseconds) of everything that ran on the card; empty where the
-    profiler cannot trace it."""
+    profiler cannot trace it. ``host_ops=False`` traces the card alone,
+    which costs the host less."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []
@@ -2239,6 +2251,273 @@ def phase_ba():
     emit("ba", data=data, slam=slam, solve=ba_large(c5.ba))
 
 
+# Phase cli: the command line a user starts the system with, called in this
+# process (main(argv)) so that the launch counters see its work, over a
+# 64-frame 640x480 directory that its own synth command writes. Phase
+# sequence_parallel then tracks the same frames in four chunks.
+CLI_FRAMES = 64
+CLI_SIZE = (640, 480)
+CLI_ODOM_ATE_TOL_M = SLAM_ATE_TOL_M
+CLI_RESUME_TOL = 1e-6
+ODOM_CHECKPOINT_AT = 50  # cli/main.py writes an odometry checkpoint every 50 frames
+BA_FAIL_AT_ITER = 4
+# Config 5 has no icp section: ba's odometry tracks with IcpConfig's
+# defaults, 5 + 7 + 10 fused steps a frame.
+DEFAULT_ICP_STEPS = sum(IcpConfig().iters_per_level)
+# Sequence-parallel odometry over the first 32 of those frames: tracing the
+# card for the busy share takes ~20 s a mode over all 64.
+SEQ_FRAMES, SEQ_CHUNKS, SEQ_OVERLAP = 32, 4, 3
+SEQ_PARALLEL_TOL = 1e-5  # the reference's own bound (tests/integration/test_sequence_parallel.py)
+SEQ_ATE_TOL_M = 0.015  # ditto
+
+
+def cli_run(*argv):
+    """One command through the port's ``main(argv)``: (exit code, what it
+    printed, wall seconds). An exception propagates."""
+    import contextlib
+    import io
+
+    from rgbd_pose_estimation_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def counted(what, expected, *argv):
+    """A command of the main path, the counters set to 0 just before it and
+    read just after: exactly ``expected`` launches, nothing else."""
+    _build.reset_launch_counts()
+    rc, out, seconds = cli_run(*argv)
+    counts = _build.launch_counts()
+    expect_launches(counts, expected(), what)
+    return rc, out, seconds, {k: v for k, v in counts.items() if v}
+
+
+class _Recorded:
+    """Records what ``module.name`` returns while the block runs."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.results = module, name, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def wrapper(*a, **kw):
+            out = fn(*a, **kw)
+            self.results.append(out)
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def read_traj(path):
+    from rgbd_pose_estimation_tpu_torch.eval.traj_io import read_tum_trajectory
+
+    return read_tum_trajectory(str(path))[1]
+
+
+def diff_report(a, b):
+    return {"max_abs_diff": float(np.abs(a - b).max()), "bit_equal": bool(np.array_equal(a, b))}
+
+
+def phase_cli(root):
+    """synth, pair (configs 1 and 2), odom with the pose graph (config 3 and
+    4's backend), eval, odom's resume across its checkpoint, ba in one
+    process with its fault injection and resume. Returns the directory."""
+    from rgbd_pose_estimation_tpu_torch.cli.main import _dataset_cam
+    from rgbd_pose_estimation_tpu_torch.data import native_loader
+    from rgbd_pose_estimation_tpu_torch.data.tum import TumSequence
+
+    t_phase = time.perf_counter()
+    configs = _ROOT / "configs"
+    d = root / "synth"
+    rc, _, synth_s = cli_run("synth", "--out", d, "--frames", CLI_FRAMES,
+                             "--width", CLI_SIZE[0], "--height", CLI_SIZE[1])
+    if rc != 0:
+        raise AssertionError(f"cli synth: exit {rc}")
+    cam, seq = _dataset_cam(str(d)), TumSequence(str(d))
+    _, gt = seq.groundtruth_aligned()
+    out = {"decoder": native_loader.decoder_name(), "frames": CLI_FRAMES,
+           "width": cam.width, "height": cam.height, "seconds": {"synth": synth_s}}
+
+    # pair: config 1 (3D-3D, kabsch: K2 + K3) and config 2 (2D-3D: K5).
+    T_ab = gt[1] @ np.linalg.inv(gt[0])
+    pairs = {"config1_3d3d": ("config1_synthetic_ao_pair.yaml", "3d3d",
+                              {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1}),
+             "config2_2d3d": ("config2_ransac_pnp_pair.yaml", "2d3d", {"score_poses_2d3d": 1})}
+    out["pair"] = {}
+    for name, (config, mode, launches) in pairs.items():
+        rc, printed, seconds, counts = counted(
+            f"cli pair {name}", lambda: launches, "pair", "--dataset", d, "--config", configs / config,
+            "--mode", mode, "--detector", "tpu", "--intrinsics", "from_dataset")
+        res = json.loads(printed)
+        pose = np.asarray(res["pose"])
+        err = float(np.abs(pose - T_ab).max())
+        if rc != 0 or not res["valid"] or not err < FRAME_PAIR_TOL:
+            raise AssertionError(f"cli pair {name}: exit {rc}, {res}, pose error {err}")
+        out["pair"][name] = {"ms_estimate": res["ms_estimate"], "pose_err": err,
+                             "num_matches": res["num_matches"], "num_inliers": res["num_inliers"],
+                             "num_hypotheses": res["num_hypotheses"], "launches": counts}
+        out["seconds"]["pair_" + name] = seconds
+
+    # odom with the pose graph: 13 fused steps a tracked frame and a loop
+    # candidate (config 3's ICP verifies the loops too), then eval.
+    c3 = configs / "config3_dense_icp_odometry.yaml"
+    steps = STEPS_PER_TRACK["config3"]
+    full, metrics = root / "odom.txt", root / "odom.jsonl"
+    with _Recorded(pose_graph, "loop_candidates") as cands:
+        rc, printed, seconds, counts = counted(
+            "cli odom --pose-graph",
+            lambda: {"icp_assoc_jtj_jtr": steps * (CLI_FRAMES - 1 + sum(map(len, cands.results)))},
+            "odom", "--dataset", d, "--out", full, "--config", c3, "--intrinsics", "from_dataset",
+            "--pose-graph", "--metrics", metrics)
+    summary = json.loads(printed)
+    logged = [json.loads(line) for line in open(metrics)]
+    ate = [r["ate_rmse"] for r in logged if "ate_rmse" in r]
+    if rc != 0 or len(ate) != 1 or not ate[0] < CLI_ODOM_ATE_TOL_M:
+        raise AssertionError(f"cli odom: exit {rc}, ATE {ate}")
+    rc, printed, eval_s = cli_run("eval", "--est", full, "--gt", d / "groundtruth.txt")
+    evaluated = json.loads(printed)
+    if rc != 0 or evaluated["num_poses"] != CLI_FRAMES or not evaluated["ate_rmse"] < CLI_ODOM_ATE_TOL_M:
+        raise AssertionError(f"cli eval: exit {rc}, {evaluated}")
+    out["odom"] = {"frames_per_s_wall": CLI_FRAMES / seconds,
+                   "frames_per_s_metrics": summary["frames_per_s"],
+                   "keyframes": sum(1 for r in logged if r.get("keyframe")),
+                   "loop_candidates": sum(map(len, cands.results)), "ate_m": ate[0],
+                   "launches": counts, "eval": evaluated}
+    out["seconds"].update(odom=seconds, eval=eval_s)
+
+    # odom's resume: 50 frames, then --resume over all of them.
+    resumed = root / "resumed.txt"
+    common = ("--dataset", d, "--out", resumed, "--config", c3, "--intrinsics", "from_dataset")
+    rc1, _, s1 = cli_run("odom", *common, "--max-frames", ODOM_CHECKPOINT_AT)
+    rc2, _, s2 = cli_run("odom", *common, "--resume", "--pose-graph")
+    resume = diff_report(read_traj(resumed), read_traj(full))
+    if rc1 != 0 or rc2 != 0 or not resume["max_abs_diff"] <= CLI_RESUME_TOL:
+        raise AssertionError(f"cli odom --resume: exits {rc1} {rc2}, {resume}")
+    out["odom"]["resume_vs_one_run"] = resume
+    out["seconds"].update(odom_first_50=s1, odom_resume=s2)
+
+    # ba in one process: config 5's ba and frontend sections on a 1 x 1 mesh.
+    c5 = root / "config5_one_device.yaml"
+    c5.write_text((configs / "config5_distributed_ba.yaml").read_text()
+                  .replace("hosts: 2", "hosts: 1").replace("chips_per_host: 4", "chips_per_host: 1"))
+    ba_common = ("--dataset", d, "--config", c5, "--intrinsics", "from_dataset", "--detector", "tpu")
+    ba_full, ba_metrics = root / "ba.txt", root / "ba.jsonl"
+    rc, printed, seconds, counts = counted(
+        "cli ba", lambda: {"icp_assoc_jtj_jtr": DEFAULT_ICP_STEPS * (CLI_FRAMES - 1)},
+        "ba", *ba_common, "--out", ba_full, "--metrics", ba_metrics)
+    one_run = json.loads(printed)
+    costs = one_run["costs"]
+    if (rc != 0 or not costs[-1] < costs[0]
+            or not one_run["reproj_rmse_after"] < one_run["reproj_rmse_before"]):
+        raise AssertionError(f"cli ba: exit {rc}, {one_run}")
+    iters = [json.loads(line) for line in open(ba_metrics)]
+    iter_ms = [r["ms"] for r in iters if "ba_iter" in r]
+
+    def centers(T):
+        return -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+
+    ckpt, ba_resumed = root / "ba.npz", root / "ba_resumed.txt"
+    try:
+        cli_run("ba", *ba_common, "--out", ba_resumed, "--checkpoint", ckpt,
+                "--fail-at-iter", BA_FAIL_AT_ITER)
+    except RuntimeError as e:
+        if "fault injection" not in str(e):
+            raise
+    else:
+        raise AssertionError("cli ba --fail-at-iter did not raise")
+    rc, printed, resume_s = cli_run("ba", *ba_common, "--out", ba_resumed, "--checkpoint", ckpt,
+                                    "--resume")
+    again = json.loads(printed)
+    ba_resume = {"costs": diff_report(np.asarray(again["costs"]), np.asarray(costs[BA_FAIL_AT_ITER + 1:])),
+                 "trajectory": diff_report(read_traj(ba_resumed), read_traj(ba_full))}
+    if rc != 0 or not max(v["max_abs_diff"] for v in ba_resume.values()) <= CLI_RESUME_TOL:
+        raise AssertionError(f"cli ba --resume: exit {rc}, {ba_resume}")
+    out["ba"] = {"keyframes": one_run["num_keyframes"], "landmarks": one_run["num_landmarks"],
+                 "observations": one_run["num_observations"],
+                 "costs_first_last": [costs[0], costs[-1]],
+                 "reprojection_rmse_before_after": [one_run["reproj_rmse_before"],
+                                                    one_run["reproj_rmse_after"]],
+                 "ms_per_iteration": statistics.median(iter_ms), "ms_per_iteration_all": iter_ms,
+                 "ate_m": ate_rmse(centers(read_traj(ba_full)), centers(gt)),
+                 "launches": counts, "resume_vs_one_run": ba_resume}
+    out["seconds"].update(ba=seconds, ba_resume=resume_s, phase=time.perf_counter() - t_phase)
+    emit("cli", **out)
+    return d
+
+
+def phase_sequence_parallel(d):
+    """``sequence_parallel_odometry`` over the first frames of phase cli's
+    directory with config 3's ICP, four chunks overlapping by three frames,
+    the chunks in four host threads and one after another."""
+    from rgbd_pose_estimation_tpu_torch.cli.main import _dataset_cam
+    from rgbd_pose_estimation_tpu_torch.data.tum import TumSequence
+    from rgbd_pose_estimation_tpu_torch.models.sequence_parallel import (
+        chunk_ranges,
+        sequence_parallel_odometry,
+    )
+
+    t_phase = time.perf_counter()
+    cam, seq = _dataset_cam(str(d)), TumSequence(str(d))
+    depths = [seq.frame(i)[2] for i in range(SEQ_FRAMES)]
+    gt = seq.groundtruth_aligned()[1][:SEQ_FRAMES]
+    c3 = load_yaml_config(_ROOT / "configs" / "config3_dense_icp_odometry.yaml")
+    ranges = chunk_ranges(len(depths), SEQ_CHUNKS, SEQ_OVERLAP)
+    tracked = sum(e - s - 1 for s, e in ranges)  # a chunk's first frame is not tracked
+    expected = {"icp_assoc_jtj_jtr": tracked * STEPS_PER_TRACK["config3"]}
+
+    def run(parallel):
+        return sequence_parallel_odometry(cam, depths, n_chunks=SEQ_CHUNKS, overlap=SEQ_OVERLAP,
+                                          icp_cfg=c3.icp, kf_cfg=c3.keyframe, parallel=parallel,
+                                          return_keyframes=True, device=DEV)
+
+    modes = {}
+    for name, parallel in (("serial", False), ("parallel", True)):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        traj, kfs = run(parallel)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        expect_launches(_build.launch_counts(), expected, f"sequence_parallel {name}")
+        # The card alone: tracing ~114k host ops from four threads takes minutes.
+        on_device = device_summary(profile_device(lambda: run(parallel), host_ops=False))
+        modes[name] = {"traj": traj, "keyframes": len(kfs), "seconds": seconds,
+                       "frames_per_s": len(depths) / seconds,
+                       "device_busy_ms": on_device["device_busy_ms"],
+                       "device_launches": on_device["cuda_kernel_launches"]}
+
+    def centers(T):
+        return -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+
+    par, ser = modes["parallel"]["traj"], modes["serial"]["traj"]
+    agree = diff_report(par, ser)
+    ate = ate_rmse(centers(par), centers(gt))
+    if not np.isfinite(par).all() or par.shape != (len(depths), 4, 4):
+        raise AssertionError(f"sequence_parallel: trajectory {par.shape}")
+    if not agree["max_abs_diff"] <= SEQ_PARALLEL_TOL or not ate < SEQ_ATE_TOL_M:
+        raise AssertionError(f"sequence_parallel: parallel vs serial {agree}, ATE {ate}")
+    for m in modes.values():
+        busy = m["device_busy_ms"]
+        m["device_busy_share"] = None if busy is None else busy / (m["seconds"] * 1e3)
+        del m["traj"]
+    emit("sequence_parallel", frames=len(depths), chunks=ranges, overlap=SEQ_OVERLAP,
+         icp=vars(c3.icp), keyframe=vars(c3.keyframe), tracked_frames=tracked,
+         icp_assoc_jtj_jtr_launches=expected["icp_assoc_jtj_jtr"],
+         parallel_vs_serial=agree, ate_m=ate, modes=modes,
+         phase_seconds=time.perf_counter() - t_phase)
+
+
 # ---------------------------------------------------------------------------
 # The measurement harness: tools/msac_opt.py and tools/roofline.py, T1-T6
 # ---------------------------------------------------------------------------
@@ -2643,6 +2922,14 @@ def main():
     phase_frame_pair()
     phase_slam()
     phase_ba()
+    import shutil
+    import tempfile
+
+    cli_root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        phase_sequence_parallel(phase_cli(cli_root))
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
 
     # Launches on each kernel's own main path, each counted from zero: the
     # 3D-3D estimates for K1-K3, the 2D-3D estimates for K5, the synchronous

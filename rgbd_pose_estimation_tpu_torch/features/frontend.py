@@ -39,8 +39,16 @@ def detect_orb(gray: np.ndarray, max_features: int = 512):
 
     Args: ``gray`` float32 (H, W) in [0,1]. Returns ``(uv (M, 2) f32,
     desc (M, 32) u8, valid (M,) bool)`` padded to ``max_features``.
+    Raises ``RuntimeError`` where OpenCV is not installed: the on-device
+    detector (``detector="tpu"``) is never taken in its place.
     """
-    import cv2
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            'detector "orb" is host OpenCV ORB, and cv2 cannot be imported '
+            f'here ({e}); choose the on-device detector ("tpu", --detector tpu)'
+        ) from e
 
     img8 = (np.clip(np.asarray(gray), 0, 1) * 255).astype(np.uint8)
     orb = cv2.ORB_create(nfeatures=max_features)

@@ -13,6 +13,11 @@ under the kernel's name, so a run can show which kernels it went through.
 A launch recorded into a CUDA graph is counted once, at capture; the graph's
 replays are not counted.
 There is no fallback: without ``nvcc`` or a card, :func:`launch` raises.
+
+Host threads may launch at once (``models/sequence_parallel.py`` runs its
+chunks in threads): the library is built and loaded once, under a lock, by
+the first thread that needs it, and every count is taken under a lock, so
+that no launch is lost.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -73,17 +79,21 @@ _SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()
 _launches = {name: 0 for name in _SIGNATURES}
+_count_lock = threading.Lock()
 
 
 def launch_counts() -> dict:
     """Kernel name → launches since the last :func:`reset_launch_counts`."""
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _count_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 def _find_nvcc() -> str:
@@ -150,20 +160,23 @@ def build(verbose: bool = False) -> pathlib.Path:
 def library(verbose: bool = False):
     """The loaded kernel library; built first if missing or stale."""
     global _lib
-    if _lib is None:
-        lib_path = _BUILD / _LIB_NAME
-        if _stale(lib_path):
-            lib_path = build(verbose)
-        lib = ctypes.CDLL(str(lib_path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, "rgbd_" + name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.rgbd_error_string.argtypes = [ctypes.c_int]
-        lib.rgbd_error_string.restype = ctypes.c_char_p
-        lib.rgbd_capture_id.argtypes = [_P]
-        lib.rgbd_capture_id.restype = ctypes.c_ulonglong
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:  # one build and one load, whichever thread comes first
+        if _lib is None:
+            lib_path = _BUILD / _LIB_NAME
+            if _stale(lib_path):
+                lib_path = build(verbose)
+            lib = ctypes.CDLL(str(lib_path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, "rgbd_" + name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.rgbd_error_string.argtypes = [ctypes.c_int]
+            lib.rgbd_error_string.restype = ctypes.c_char_p
+            lib.rgbd_capture_id.argtypes = [_P]
+            lib.rgbd_capture_id.restype = ctypes.c_ulonglong
+            _lib = lib
     return _lib
 
 
@@ -177,7 +190,8 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.rgbd_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
-    _launches[name] += 1
+    with _count_lock:
+        _launches[name] += 1
 
 
 def capture_id(stream: int) -> int:

@@ -83,7 +83,9 @@ def _ticket(dev) -> torch.Tensor:
         return held[1]
     ticket = _tickets.get(key)
     if ticket is None:
-        ticket = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+        # Host threads that launch on one stream share its ticket; of two
+        # that make it at once, both take the one stored first.
+        ticket = _tickets.setdefault(key, torch.zeros(1, dtype=torch.int32, device=dev))
     return ticket
 
 

@@ -1,0 +1,131 @@
+"""One-off checks of the port against the JAX package, on the CPU; not
+collected by pytest. Each prints one JSON line.
+
+    python tests/port_vs_reference_checks.py ba [WIDTH HEIGHT]
+    python tests/port_vs_reference_checks.py odom-resume
+
+``ba``: both packages' ``Slam.optimize(bundle_adjust=True)`` over one
+64-frame TUM directory that the port's ``data/tum.py`` writes (640x480 by
+default; config 4's ICP and pose graph, a keyframe at least every 4th frame,
+config 5's BA with the on-device detector): the ATE with the pose graph
+alone and with BA, and the refined keyframe poses of the two packages.
+
+``odom-resume``: each package's ``odom`` command over a 56-frame 80x60
+directory with config 3, once through and as ``--max-frames 50`` then
+``--resume``. The reference's resume raises a TypeError (its checkpoint
+loader calls ``_make_frame`` with one argument); it is run here with that
+call given ``intensity=None``, as the port's loader does.
+"""
+
+import contextlib
+import dataclasses
+import io
+import json
+import pathlib
+import sys
+import tempfile
+
+_REPO = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(_REPO))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics as JCamera  # noqa: E402
+from rgbd_pose_estimation_tpu.utils import config as jconfig  # noqa: E402
+from rgbd_pose_estimation_tpu_torch.data import tum  # noqa: E402
+from rgbd_pose_estimation_tpu_torch.eval.ate import ate_rmse  # noqa: E402
+from rgbd_pose_estimation_tpu_torch.utils import config  # noqa: E402
+
+CONFIGS = _REPO / "configs"
+
+
+def _centers(T):
+    return -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+
+
+def _slam_config(pkg):
+    c4 = pkg.load_yaml_config(CONFIGS / "config4_pose_graph.yaml")
+    c5 = pkg.load_yaml_config(CONFIGS / "config5_distributed_ba.yaml")
+    return pkg.PipelineConfig(icp=c4.icp, pose_graph=c4.pose_graph,
+                              keyframe=pkg.KeyframeConfig(max_interval=4), ba=c5.ba,
+                              frontend=dataclasses.replace(c5.frontend, detector="tpu"))
+
+
+def check_ba(root, size=(640, 480)):
+    from rgbd_pose_estimation_tpu.models.slam import Slam as JSlam
+    from rgbd_pose_estimation_tpu_torch.models.slam import Slam
+
+    cam = tum.write_synthetic_tum(root, n_frames=64, size=size, motion_scale=0.008, seed=61,
+                                  device="cpu")
+    seq = tum.TumSequence(root)
+    frames = [seq.frame(i) for i in range(len(seq))]
+    _, gt = seq.groundtruth_aligned()
+    out = {"size": list(size)}
+    for name, slam in (("port", Slam(cam, _slam_config(config), device="cpu")),
+                       ("reference", JSlam(JCamera(cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+                                                   cam.height), _slam_config(jconfig)))):
+        for _, gray, depth in frames:
+            slam.track(depth, gray=gray)
+        pose_graph = np.asarray(slam.optimize())
+        with_ba = np.asarray(slam.optimize(bundle_adjust=True))
+        kf = [k.index for k in slam.odo.keyframes]
+        out[name] = {"keyframes": kf, "ate_pose_graph_m": ate_rmse(_centers(pose_graph), _centers(gt)),
+                     "ate_ba_m": ate_rmse(_centers(with_ba), _centers(gt)),
+                     "ba_moved_keyframes_by": float(np.abs(with_ba[kf] - pose_graph[kf]).max()),
+                     "keyframes_from_truth_after_ba": float(np.abs(with_ba[kf] - gt[kf]).max())}
+        out[name]["_poses"] = (kf, pose_graph, with_ba)
+    (kf, pg, ba), (kf_r, pg_r, ba_r) = out["port"].pop("_poses"), out["reference"].pop("_poses")
+    if kf == kf_r:
+        out["port_vs_reference"] = {"pose_graph_keyframes": float(np.abs(pg[kf] - pg_r[kf]).max()),
+                                    "refined_keyframes": float(np.abs(ba[kf] - ba_r[kf]).max())}
+    return out
+
+
+def check_odom_resume(root):
+    from rgbd_pose_estimation_tpu.cli.main import main as jmain
+    from rgbd_pose_estimation_tpu.utils import checkpoint as jcheckpoint
+    from rgbd_pose_estimation_tpu_torch.cli.main import main
+    from rgbd_pose_estimation_tpu_torch.eval.traj_io import read_tum_trajectory
+
+    load = jcheckpoint.load_odometry_checkpoint
+
+    def load_with_intensity_none(path, odo, seq):
+        make_frame = odo._make_frame
+        odo._make_frame = lambda depth, intensity=None: make_frame(depth, intensity)
+        return load(path, odo, seq)
+
+    jcheckpoint.load_odometry_checkpoint = load_with_intensity_none
+    d = str(pathlib.Path(root) / "synth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(["synth", "--out", d, "--frames", "56", "--width", "80", "--height", "60", "--cpu"])
+    out = {}
+    for name, run in (("port", main), ("reference", jmain)):
+        common = ["--dataset", d, "--config", str(CONFIGS / "config3_dense_icp_odometry.yaml"),
+                  "--intrinsics", "from_dataset", "--cpu"]
+        full, resumed = (str(pathlib.Path(root) / f"{name}_{k}.txt") for k in ("full", "resumed"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            run(["odom", "--out", full, *common])
+            run(["odom", "--out", resumed, "--max-frames", "50", *common])
+            run(["odom", "--out", resumed, "--resume", *common])
+        a, b = read_tum_trajectory(full)[1], read_tum_trajectory(resumed)[1]
+        per_frame = np.abs(a - b).reshape(len(a), -1).max(axis=1)
+        out[name] = {"max_abs_diff": float(per_frame.max()),
+                     "first_differing_frame": int(np.argmax(per_frame > 0)) if per_frame.max() > 0 else None}
+    return out
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(4)
+    with tempfile.TemporaryDirectory() as tmp:
+        if sys.argv[1] == "ba":
+            size = tuple(int(x) for x in sys.argv[2:4]) or (640, 480)
+            print(json.dumps(check_ba(tmp, size)))
+        elif sys.argv[1] == "odom-resume":
+            print(json.dumps(check_odom_resume(tmp)))
+        else:
+            raise SystemExit(__doc__)

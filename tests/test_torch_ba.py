@@ -8,6 +8,7 @@ reference's step is called through ``jax.jit``, one signature a case.
 frames of the port's renderer, handed to both as numpy.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 
 import jax

@@ -6,6 +6,7 @@ otherwise: both sides evaluate the same f32 formulas; XLA may contract a
 multiply-add that PyTorch rounds twice. Masks and integer results are equal.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

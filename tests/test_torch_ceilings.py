@@ -5,6 +5,7 @@ by the interpreter; the CUDA kernels T4 and T6 are held against them on the
 card by chip_smoke.py. The slope and its resolution guard are driven with a
 fake clock."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import functools
 import re
 

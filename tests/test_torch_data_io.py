@@ -8,6 +8,7 @@ here once for the 80x60 camera (its writers call it eagerly otherwise); they
 encode with OpenCV (the file is skipped where ``cv2`` is missing).
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import os
 import shutil
 import types

@@ -1,6 +1,7 @@
 """The slice as a whole: the PyTorch port's 3D-3D RANSAC estimator against
 the JAX package's, from the same correspondences and the same minimal sets."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ N)``: this file uses four such signatures in all (K = 512 and its K = 64
 probe, at N = 300 and at N = 512), each once, through module-scoped fixtures.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 
 import jax

@@ -2,6 +2,7 @@
 Umeyama alignment, RPE, TUM trajectory files, timestamp association and the
 metrics summary. Trajectories are made in numpy and handed to both."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import json
 
 import numpy as np

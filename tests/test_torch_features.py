@@ -7,6 +7,7 @@ shape each. The cases of the JAX package's own detector tests run on the
 port alone.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ draws the minimal sets (``jax.random.key(0)``, as its estimator does); the
 port's estimator runs from those very sets.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 
 import jax

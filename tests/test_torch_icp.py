@@ -7,6 +7,7 @@ compiles one track for each, so there are no more. Depth and intensity are
 rendered once by the JAX package and handed to both as numpy arrays.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 
 import jax

@@ -11,6 +11,7 @@ Tolerance rtol 2e-4 / atol 1e-4, the one of ``tests/kernels/test_icp_jtj.py``:
 every entry is a sum of M f32 products taken in another order.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ Tolerance 1e-6 absolute throughout: both sides evaluate the same f32
 formulas on the CPU; only the order of a few additions inside the 3x3
 products and the libm behind sin/cos differ."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import functools
 
 import jax

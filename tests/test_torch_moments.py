@@ -3,6 +3,7 @@ its jnp twin. On CPU tensors the port's wrapper runs its plain version,
 which is what these tests reach; the CUDA kernel itself is held against
 that plain version on the card by chip_smoke.py."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

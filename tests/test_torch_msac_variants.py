@@ -5,6 +5,7 @@ interpreter, and against the JAX package's exact scorer. The CUDA kernels
 T1, T2, T3 and T5 are held against these plain versions on the card by
 chip_smoke.py."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import re
 
 import jax.numpy as jnp

@@ -1,6 +1,7 @@
 """solvers/normals.py and the point+normal RANSAC estimator of the PyTorch
 port against the JAX package's, from the same numpy-made inputs."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ strided): the JAX side compiles one track and one frame builder for each.
 The sequence is rendered once by the JAX package and fed to both as numpy.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 import json
 import types

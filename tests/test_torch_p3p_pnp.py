@@ -1,6 +1,7 @@
 """solvers/p3p.py and solvers/pnp.py of the PyTorch port against the JAX
 package's, from the same numpy-made problems."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,7 @@
 """The PyTorch port as a package: it imports without JAX, its configs equal
 the JAX package's, and its converters round-trip."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 import json
 import pathlib
@@ -29,14 +30,14 @@ import rgbd_pose_estimation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 57, names
+assert len(names) >= 60, names
 for new in ("core.poly", "solvers.p3p", "solvers.pnp", "solvers.normals",
             "ops.msac_variants", "ops.ceilings", "tools.roofline", "tools.msac_opt",
             "features.tpu_detect", "features.frontend", "models.frame_pair", "models.slam",
             "graph.pose_graph", "eval.ate", "eval.traj_io", "eval.report",
             "ba.schur", "ba.build", "data.png", "data.native_loader", "data.tum",
             "data.icl_nuim", "data.prefetch", "utils.checkpoint", "utils.timing",
-            "parallel.mesh"):
+            "parallel.mesh", "cli.main", "models.sequence_parallel"):
     assert pkg.__name__ + "." + new in names, new
 # "tools" is the JAX repository's harness directory: the port's own tools
 # live in its package and import nothing of it. cv2 is imported by host ORB

@@ -1,6 +1,7 @@
 """core/poly.py of the PyTorch port against the JAX package's: the masked
 closed-form cubic and quartic solvers, from the same coefficients."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ The graph is built in numpy and handed to both. The reference's optimizer
 is jitted by the JAX package (one compile a config and shape: two here).
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 
 import jax.numpy as jnp

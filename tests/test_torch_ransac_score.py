@@ -4,6 +4,7 @@ tensors the port's wrappers run their plain versions, which is what these
 tests reach; the CUDA kernels are held against those plain versions on the
 card by chip_smoke.py."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

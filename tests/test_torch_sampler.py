@@ -1,5 +1,6 @@
 """ransac/prosac.py of the PyTorch port against the JAX package's."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ package's component-wise f32 arithmetic line for line, so what differs is
 the order of the sums over the N points (and the SVD library for Kabsch and
 Umeyama), a few f32 ulps on entries of order 1."""
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ test takes the JAX package's draws (recomputed here from its keys) and hands
 them to the port; everything downstream of the draws is compared.
 """
 
+import _port_test_settings  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np
