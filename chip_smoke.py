@@ -34,6 +34,15 @@ through the launch counters that each path went through its kernels:
   the pose graph, the BA build and the Schur-complement solve), then
   ``ba_solve`` at O = 98,304 observations (cost, truth, bit-equal reruns,
   card against CPU, no wait for the stream);
+- the distributed layer on a mesh of one rank, a real NCCL group of world
+  size 1 (``distributed``): each sharded function against its single-device
+  twin at the shapes above (K3 through ``score_poses_3d3d_sharded``, K4
+  through ``icp_jtj_sharded``, the fused ICP step through
+  ``icp_verify_sharded`` on phase ``ba``'s loop candidates, the replicated
+  and the landmark-blocked BA at O = 98,304 with the all-to-all relayout,
+  the ring similarity), the bytes a blocked CG iteration reduces, the
+  sharded ``Slam.optimize(bundle_adjust=True, mesh=)`` against the call
+  without mesh, and ``dryrun_multichip(1)``;
 - the command line a user starts the system with, ``cli/main.py``'s
   ``main(argv)`` in this process (``cli``): ``synth`` writes a 64-frame
   640x480 directory, then ``pair`` (configurations 1 and 2), ``odom`` with
@@ -2052,7 +2061,8 @@ def ba_data(root):
 
 def ba_slam(cam, seq, frames):
     """Part 2: ``Slam`` with BA over the frames read back, config 4's
-    tracking and pose graph, config 5's BA and front-end size."""
+    tracking and pose graph, config 5's BA and front-end size. Returns the
+    Slam, its trajectory with BA and the phase's record."""
     import dataclasses
 
     from rgbd_pose_estimation_tpu_torch.ba.build import (
@@ -2147,7 +2157,7 @@ def ba_slam(cam, seq, frames):
         raise AssertionError(f"ba: reprojection RMSE {rmse_before} -> {rmse_after}")
     if len(loops) < 1:
         raise AssertionError(f"ba: no loop verified among {len(candidates)} candidates")
-    return {
+    return slam, traj, {
         "frames": BA_FRAMES, "width": cam.width, "height": cam.height,
         "detector": "tpu (config 5 names orb: host OpenCV, which the card's machine lacks)",
         "ba": vars(cfg.ba), "icp": vars(cfg.icp), "keyframe": vars(cfg.keyframe),
@@ -2244,11 +2254,269 @@ def phase_ba():
     root = tempfile.mkdtemp(prefix="chip_smoke_tum_")
     try:
         cam, seq, frames, data = ba_data(root)
-        slam = ba_slam(cam, seq, frames)
+        slam, traj, record = ba_slam(cam, seq, frames)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     c5 = load_yaml_config(_ROOT / "configs" / "config5_distributed_ba.yaml")
-    emit("ba", data=data, slam=slam, solve=ba_large(c5.ba))
+    emit("ba", data=data, slam=record, solve=ba_large(c5.ba))
+    return slam, traj
+
+
+# Phase distributed: the distributed layer (parallel/, ba/cluster.py) on a
+# mesh of one rank, a real NCCL group of world size 1 (NCCL refuses two
+# ranks on one card; the multi-rank runs are the CPU tests' gloo groups).
+# Each sharded function is held against its single-device twin at the
+# shapes of the earlier phases, with the tolerances of the JAX package's
+# distributed tests; on one rank the sums run in the same order, so each is
+# also reported bit for bit.
+DIST_SEED = 71
+DIST_SCORE_RTOL = 1e-6
+DIST_ICP_RTOL, DIST_ICP_ATOL = 2e-5, 1e-3
+DIST_COST_RTOL, DIST_POSE_ATOL, DIST_POINT_ATOL = 1e-5, 2e-4, 1e-3
+DIST_RING_TOL = 1e-5
+DIST_ICP_M = 640 * 480
+DIST_RING_K = BA_FRAMES  # one descriptor a frame of phase ba's sequence
+
+
+def check_same(out, ref, rtol, atol, what):
+    """``out`` within the tolerance of ``ref`` (NaN where ``ref`` has it);
+    returns whether it is bit-equal too."""
+    assert_close(out, ref, rtol, atol, what)
+    return bool(torch.equal(torch.nan_to_num(out, nan=7.0), torch.nan_to_num(ref, nan=7.0)))
+
+
+def counted_launches(fn):
+    """``fn()`` with the launch counters set to 0 just before it and read
+    just after: (result, {kernel: launches} of the kernels it launched)."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _build.launch_counts().items() if v}
+
+
+def without_sync(fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a read-back raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def interleaved_ms(fns, rounds=7):
+    """Median ms of one call of each of ``fns`` (a dict), by CUDA events and
+    by the host clock to a synchronise, the calls taken in turns so that
+    the host's drift falls on all alike."""
+    samples = {k: ([], []) for k in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            samples[k][0].append(start.elapsed_time(stop))
+            samples[k][1].append((time.perf_counter() - t0) * 1e3)
+    return {k: {"events": statistics.median(ev), "host": statistics.median(host)}
+            for k, (ev, host) in samples.items()}
+
+
+def dist_loop_candidates(slam):
+    """The loop candidates of phase ba's keyframes as
+    ``detect_loop_closures`` verifies them: (pairs, T_init, src, tgt)."""
+    from rgbd_pose_estimation_tpu_torch.icp.dense import IcpFrame
+
+    kfs = slam.odo.keyframes
+    pairs = pose_graph.loop_candidates(kfs, 0.5, 3, 20)
+    inv = pose_graph._inverse_np(np.stack([k.pose for k in kfs]))
+    T_init = torch.from_numpy(np.stack([kfs[a].pose @ inv[b] for a, b in pairs]).astype(np.float32)).to(DEV)
+
+    def stack(frames):
+        return IcpFrame(*(tuple(torch.stack(level) for level in zip(*leaves)) for leaves in zip(*frames)))
+
+    return pairs, T_init, stack([kfs[b].frame for _, b in pairs]), stack([kfs[a].frame for a, _ in pairs])
+
+
+def phase_distributed(slam, traj):
+    """Every sharded function on a world-1 NCCL mesh against its twin, the
+    launches of K3, K4 and the fused ICP step on the sharded paths, the BA
+    steps with no read-back, the bytes a blocked CG iteration reduces, the
+    sharded Slam and the dry run. Returns the sharded paths' launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from rgbd_pose_estimation_tpu_torch.ba import cluster
+    from rgbd_pose_estimation_tpu_torch.ba.schur import (
+        ba_solve,
+        ba_step,
+        make_synthetic_ba_problem,
+        reduction_slots,
+    )
+    from rgbd_pose_estimation_tpu_torch.icp.dense import icp_track_batch
+    from rgbd_pose_estimation_tpu_torch.parallel import mesh as pm
+    from rgbd_pose_estimation_tpu_torch.parallel import sharded as ps
+    from rgbd_pose_estimation_tpu_torch.parallel.dryrun import dryrun_multichip
+    from rgbd_pose_estimation_tpu_torch.parallel.specs import REPLICATED
+
+    t_phase = time.perf_counter()
+    mesh = pm.make_mesh(device=DEV)
+    backend = str(dist.get_backend())
+    if "nccl" not in backend or dist.get_world_size() != 1 or mesh.shape != (1, 1):
+        raise AssertionError(f"distributed: a {backend} group of {dist.get_world_size()}, mesh {mesh.shape}")
+    out = {"backend": backend, "world_size": dist.get_world_size(), "mesh": list(mesh.shape)}
+    launches = {}
+
+    def fetch(x):
+        return pm.gather_global(x)
+
+    # K3: the bench problem's hypotheses split over the ranks.
+    _, pp, qq, T = hypotheses(DIST_SEED, K, N)
+    (msac, count), got = counted_launches(lambda: ps.score_poses_3d3d_sharded(mesh, T, pp, qq, TAU))
+    expect_launches(got, {"score_poses_3d3d": 1}, "distributed: score_poses_3d3d_sharded")
+    launches["score_poses_3d3d"] = got["score_poses_3d3d"]
+    ref_m, ref_c = rs.score_poses_3d3d(T, pp, qq, TAU)
+    again = ps.score_poses_3d3d_sharded(mesh, T, pp, qq, TAU)[0]
+    out["score"] = {
+        "K": K, "N": N, "bit_equal": check_same(fetch(msac), ref_m, DIST_SCORE_RTOL, 0.0, "sharded scores"),
+        "counts_equal": bool(torch.equal(fetch(count), ref_c)),
+        "rerun_bit_equal": bool(torch.equal(torch.nan_to_num(again.local), torch.nan_to_num(msac.local))),
+        "ms": time_ms(lambda: ps.score_poses_3d3d_sharded(mesh, T, pp, qq, TAU)),
+        "single_device_ms": time_ms(lambda: rs.score_poses_3d3d(T, pp, qq, TAU)),
+    }
+    if not out["score"]["counts_equal"]:
+        raise AssertionError("distributed: sharded inlier counts differ")
+
+    # K4: the 640x480 pixel rows split over the ranks, one all_reduce.
+    g = generator(DIST_SEED + 1)
+    p = torch.randn((DIST_ICP_M, 3), generator=g, device=DEV)
+    q = p + 0.01 * torch.randn((DIST_ICP_M, 3), generator=g, device=DEV)
+    n = torch.randn((DIST_ICP_M, 3), generator=g, device=DEV)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    w = torch.rand((DIST_ICP_M,), generator=g, device=DEV)
+    shd, got = counted_launches(lambda: ps.icp_jtj_sharded(mesh, p, q, n, w))
+    expect_launches(got, {"icp_jtj_jtr": 1}, "distributed: icp_jtj_sharded")
+    launches["icp_jtj_jtr"] = got["icp_jtj_jtr"]
+    ref = icp_jtj_jtr(p, q, n, w)
+    out["icp_jtj"] = {
+        "M": DIST_ICP_M,
+        "bit_equal": all([check_same(a.reshape(-1), b.reshape(-1), DIST_ICP_RTOL, DIST_ICP_ATOL, "icp_jtj_sharded")
+                          for a, b in zip(shd, ref)]),
+        "ms": time_ms(lambda: ps.icp_jtj_sharded(mesh, p, q, n, w)),
+        "single_device_ms": time_ms(lambda: icp_jtj_jtr(p, q, n, w)),
+    }
+
+    # The fused ICP step: phase ba's loop candidates split over the ranks.
+    pairs, T_init, src, tgt = dist_loop_candidates(slam)
+    cam, icp_cfg = slam.odo.cam, slam.odo.icp_cfg
+    (T_v, stats_v, valid0), got = counted_launches(
+        lambda: ps.icp_verify_sharded(mesh, cam, icp_cfg, T_init, src, tgt))
+    expect_launches(got, {"icp_assoc_jtj_jtr": SLAM_STEPS * len(pairs)}, "distributed: icp_verify_sharded")
+    launches["icp_assoc_jtj_jtr"] = got["icp_assoc_jtj_jtr"]
+    T_ref, stats_ref = icp_track_batch(cam, icp_cfg, T_init, src, tgt)
+    valid_ref = torch.sum(torch.sum(src.normals[0] ** 2, dim=-1) > 0.5, dim=(1, 2)).to(torch.float32)
+    out["icp_verify"] = {
+        "pairs": len(pairs), "size": [cam.width, cam.height],
+        "bit_equal": (check_same(fetch(T_v), T_ref, DIST_ICP_RTOL, DIST_ICP_ATOL, "icp_verify_sharded poses")
+                      and check_same(fetch(stats_v), stats_ref, DIST_ICP_RTOL, DIST_ICP_ATOL,
+                                     "icp_verify_sharded stats")),
+        "valid0_equal": bool(torch.equal(fetch(valid0), valid_ref)),
+    }
+    if not out["icp_verify"]["valid0_equal"] or len(pairs) < 1:
+        raise AssertionError(f"distributed: {len(pairs)} candidates, valid0 {out['icp_verify']}")
+
+    # BA at O = 98,304: the replicated layout and the blocked one.
+    cfg = load_yaml_config(_ROOT / "configs" / "config5_distributed_ba.yaml").ba
+    host, _, _ = make_synthetic_ba_problem(torch.Generator().manual_seed(BA_PROBLEM_SEED + 1),
+                                           **BA_PROBLEM, device="cpu")
+    prob = type(host)(*(None if x is None else x.to(DEV) for x in host))
+    C, L = int(prob.poses.shape[0]), int(prob.points.shape[0])
+    slots = reduction_slots(prob)
+    shard_slots = ps.ba_reduction_slots(mesh, prob)
+    ref_p, ref_cost = ba_step(prob, cfg, *slots)
+    ps.ba_step_sharded(mesh, prob, cfg, shard_slots)  # warm-up
+    sh, sh_cost = without_sync(lambda: ps.ba_step_sharded(mesh, prob, cfg, shard_slots))
+    sh2, sh_cost2 = ps.ba_step_sharded(mesh, prob, cfg, shard_slots)
+    out["ba_step_sharded"] = {
+        "O": int(prob.cam_idx.shape[0]), "C": C, "L": L,
+        "bit_equal": (check_same(sh_cost.reshape(1), ref_cost.reshape(1), DIST_COST_RTOL, 0.0, "sharded cost")
+                      and check_same(fetch(sh.poses), ref_p.poses, 0.0, DIST_POSE_ATOL, "sharded poses")
+                      and check_same(fetch(sh.points), ref_p.points, 0.0, DIST_POINT_ATOL, "sharded points")),
+        "rerun_bit_equal": bool(torch.equal(sh2.poses.local, sh.poses.local) and torch.equal(sh_cost2, sh_cost)),
+    }
+    blocked, layout, cstats, dropped = cluster.block_ba_problem_device(mesh, prob)
+    dropped = int(pm.fetch_global(mesh, REPLICATED, dropped))
+    if dropped or cstats["reshard_dropped_host"]:
+        raise AssertionError(f"distributed: the relayout dropped {dropped} observations")
+    b_slots = ps.layout_slots(mesh, layout)
+    ps.ba_step_blocked(mesh, blocked, cfg, b_slots)  # warm-up
+    solved_b, costs_b = without_sync(lambda: ps.ba_solve_blocked(mesh, blocked, cfg, b_slots))
+    solved, costs = ba_solve(prob, cfg)
+    points_b = torch.from_numpy(cluster.unblock_points(fetch(solved_b.points), layout)).to(DEV)
+    again_b, costs_b2 = ps.ba_solve_blocked(mesh, blocked, cfg, b_slots)
+    out["ba_solve_blocked"] = {
+        "outer_iters": cfg.outer_iters, "cg_iters": cfg.cg_iters, "dropped": dropped,
+        "block_size": layout.block_size, "obs_cap": layout.obs_cap,
+        "bit_equal": (check_same(costs_b, costs, DIST_COST_RTOL, 0.0, "blocked costs")
+                      and check_same(fetch(solved_b.poses), solved.poses, 0.0, DIST_POSE_ATOL, "blocked poses")
+                      and check_same(points_b, solved.points, 0.0, DIST_POINT_ATOL, "blocked points")),
+        "rerun_bit_equal": bool(torch.equal(again_b.poses.local, solved_b.poses.local)
+                                and torch.equal(costs_b2, costs_b)),
+    }
+    if not (out["ba_step_sharded"]["rerun_bit_equal"] and out["ba_solve_blocked"]["rerun_bit_equal"]):
+        raise AssertionError(f"distributed: BA reruns differ {out}")
+
+    # The bytes one CG iteration reduces, counted on the collectives.
+    def reduced(step, iters):
+        mesh.reset_comm()
+        step(dataclasses.replace(cfg, cg_iters=iters))
+        torch.cuda.synchronize()
+        return mesh.comm["all_reduce"]
+
+    per_iter = {}
+    for name, step in (("blocked", lambda c: ps.ba_step_blocked(mesh, blocked, c, b_slots)),
+                       ("replicated", lambda c: ps.ba_step_sharded(mesh, prob, c, shard_slots))):
+        (calls1, bytes1), (calls2, bytes2) = reduced(step, cfg.cg_iters), reduced(step, cfg.cg_iters + 1)
+        per_iter[name] = {"bytes": bytes2 - bytes1, "all_reduce_calls": calls2 - calls1,
+                          "all_reduce_calls_per_step": calls1,
+                          "comm_bytes_per_cg_iter": cluster.comm_bytes_per_cg_iter(C, L, name == "blocked")}
+        if per_iter[name]["bytes"] != per_iter[name]["comm_bytes_per_cg_iter"]:
+            raise AssertionError(f"distributed: a {name} CG iteration reduced {per_iter[name]}")
+    out["cg_iteration_reduces"] = per_iter
+    steps = {"ba_step": lambda: ba_step(prob, cfg, *slots),
+             "ba_step_sharded": lambda: ps.ba_step_sharded(mesh, prob, cfg, shard_slots),
+             "ba_step_blocked": lambda: ps.ba_step_blocked(mesh, blocked, cfg, b_slots)}
+    out["ba_ms_per_step"] = interleaved_ms(steps)
+    out["ba_step_device"] = {k: device_summary(profile_device(fn)) for k, fn in steps.items()}
+
+    # The ring over one descriptor a frame of phase ba's sequence.
+    desc = torch.from_numpy(np.stack([
+        pose_graph.frame_descriptor(make_icp_frame(cam, torch.from_numpy(d).to(DEV), icp_cfg))
+        for d in slam._depths[:DIST_RING_K]])).to(DEV)
+    ring = fetch(ps.ring_similarity(mesh, desc))
+    out["ring"] = {"K": int(desc.shape[0]), "D": int(desc.shape[1]),
+                   "bit_equal": check_same(ring, desc @ desc.T, DIST_RING_TOL, DIST_RING_TOL, "ring")}
+
+    # The sharded Slam on phase ba's frames, against its call without mesh.
+    (traj_mesh), got = counted_launches(lambda: slam.optimize(bundle_adjust=True, mesh=mesh))
+    diff = float(np.abs(traj_mesh - traj).max())
+    if not (traj_mesh.shape == traj.shape and diff <= DIST_POSE_ATOL):
+        raise AssertionError(f"distributed: Slam with mesh differs from without by {diff}")
+    out["slam_optimize_mesh"] = {"max_abs_diff": diff, "bit_equal": bool(np.array_equal(traj_mesh, traj)),
+                                 "launches": got}
+
+    dryrun_multichip(1, device=DEV)
+    out["dryrun_multichip"] = "ok"
+    out["launches_on_sharded_paths"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    dist.destroy_process_group()
+    emit("distributed", **out)
+    return launches
 
 
 # Phase cli: the command line a user starts the system with, called in this
@@ -2921,7 +3189,7 @@ def main():
     phase_reference()
     phase_frame_pair()
     phase_slam()
-    phase_ba()
+    dist_launches = phase_distributed(*phase_ba())
     import shutil
     import tempfile
 
@@ -2941,6 +3209,8 @@ def main():
         rec["launches"] = paths.get(rec["name"], counts)[rec["name"]]
         if rec["launches"] < 1:
             raise AssertionError(f"{rec['name']} was not launched by the main path")
+        if rec["name"] in dist_launches:  # K3, K4, the fused step: phase distributed
+            rec["launches_sharded"] = dist_launches[rec["name"]]
     # T1-T6: launches of the harness phase, counted from zero there.
     harness, t1_device_ms, fma, op_mix = phase_msac_opt()
     records += harness

@@ -32,8 +32,9 @@ ICL-NUIM readers; trajectory evaluation):
                  block-Jacobi PCG), loop candidates and their ICP
                  verification, the corrected trajectory.
 - ``ba``       — the BA problem from keyframes (features, batched matching,
-                 union-find tracks) and the matrix-free Schur-complement
-                 Gauss-Newton step with CG, its sums in a fixed order.
+                 union-find tracks), the matrix-free Schur-complement
+                 Gauss-Newton step with CG, its sums in a fixed order, and
+                 the landmark clustering of the blocked layout.
 - ``models``   — ``FramePairEstimator`` (configurations 1-2),
                  ``DenseOdometry`` (frame-to-keyframe; ``process`` and the
                  pipelined ``process_stream``) and ``Slam`` (odometry → loop
@@ -49,8 +50,10 @@ ICL-NUIM readers; trajectory evaluation):
                  analytically raycast RGB-D sequences; TUM and ICL-NUIM
                  directories (read and written), PNG decode (the native
                  library or a standard-library codec), the prefetcher.
-- ``parallel`` — so far only the span-partition policy of the
-                 distributed layer.
+- ``parallel`` — the distributed layer on ``torch.distributed``: meshes as
+                 process groups (one rank a device), layouts, the sharded
+                 RANSAC/ICP/BA steps, the all-to-all observation relayout,
+                 the ring similarity, the multi-rank dry run.
 - ``utils``    — configs, the metrics logger, phase timers, checkpoints and
                  the converters that carry configuration, inputs, state and
                  results between the two packages.

@@ -15,8 +15,16 @@ pair; the matches are the same). The track graph is host numpy and Python,
 in the reference's order: the landmark order is the insertion order of the
 union-find roots.
 
-The reference shards detection and matching over processes through a mesh;
-that waits for the port's distributed layer, so ``mesh`` raises.
+With ``mesh`` (a mesh of several processes, ``parallel/mesh.py``) the
+per-keyframe work is process-sharded as in the reference: each rank detects
+only its contiguous span of keyframes and matches only its span of pairs,
+then the fixed-size per-keyframe feature arrays and the match results are
+exchanged with ``allgather_hosts`` and summed (each rank's contribution is
+zero outside its span), so every rank runs the same union-find on the same
+inputs. Keypoint depths are sampled at detection and ride the exchange.
+The reference sums the gathered copies on the assumption that the spans do
+not overlap (ROADMAP.md queue 3 lists that as its fault); this is ported as
+it is.
 """
 
 from __future__ import annotations
@@ -32,18 +40,19 @@ from rgbd_pose_estimation_tpu_torch.features.frontend import (
     _detect,
     match_descriptors,
 )
+from rgbd_pose_estimation_tpu_torch.parallel.mesh import allgather_hosts, partition_bounds
 
 # Keyframe pairs a batched matching call: its (pairs, M, M, 32) xor bytes
 # are ~1 GB at M = 512 on the way through the popcount table.
 _MATCH_CHUNK = 32
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (process-sharded BA build) needs the distributed layer, "
-            "which is not ported yet (ROADMAP.md queue 1 item 6)"
-        )
+def _span(n: int, mesh):
+    """This rank's contiguous span of ``n`` items, and the rank count."""
+    procs = mesh.size if mesh is not None else 1
+    pid = mesh.rank if procs > 1 else 0
+    bounds = partition_bounds(n, procs)
+    return int(bounds[pid]), int(bounds[pid + 1]), procs
 
 
 class _UnionFind:
@@ -74,22 +83,33 @@ def detect_keyframe_features(
     """Detect keypoints + sample their depths for every keyframe.
 
     Returns host ``(uv (K, M, 2) f32, desc (K, M, 32) u8, valid (K, M)
-    bool, z (K, M) f32)``. ``stats`` (dict, mutated) records
-    ``detect_calls``, as in the reference.
+    bool, z (K, M) f32)``. With ``mesh`` each rank detects only its
+    contiguous keyframe span (the images are only indexed there, so a lazy
+    loader shards the decoding too) and the results are exchanged with two
+    all-gathers (an f32 pack and the u8 descriptors). ``stats`` (dict,
+    mutated) records this rank's ``detect_calls``, as in the reference.
     """
-    _no_mesh(mesh)
     K = len(keyframe_grays)
     M = max_features
+    lo, hi, procs = _span(K, mesh)
     uv = np.zeros((K, M, 2), np.float32)
     desc = np.zeros((K, M, 32), np.uint8)
     valid = np.zeros((K, M), bool)
     z = np.zeros((K, M), np.float32)
-    for k in range(K):
+    for k in range(lo, hi):
         u, d, v = _detect(np.asarray(keyframe_grays[k]), M, detector, device)
         uv[k], desc[k], valid[k] = u, d, v
         z[k] = _depth_at(np.asarray(keyframe_depths[k]), u)
     if stats is not None:
-        stats["detect_calls"] = K
+        stats["detect_calls"] = hi - lo
+    if procs > 1:
+        # Disjoint support: every rank's contribution is zero outside its
+        # own span, so the sum of the gathered copies is the whole.
+        pack = np.concatenate([uv, z[..., None], valid[..., None].astype(np.float32)], axis=-1)
+        pack = allgather_hosts(mesh, pack).sum(axis=0)
+        uv, z = pack[..., :2], pack[..., 2]
+        valid = pack[..., 3] > 0.5
+        desc = allgather_hosts(mesh, desc).sum(axis=0, dtype=np.int64).astype(np.uint8)
     return uv, desc, valid, z
 
 
@@ -107,25 +127,34 @@ def match_keyframe_pairs(
     keyframe a's keypoints' best match in b and the ratio + mutual gate.
     The descriptors go up once; the pairs are matched in batches of
     ``_MATCH_CHUNK`` (one call for up to that many), and read back once.
-    ``stats["match_pairs_local"]`` records the pairs matched.
+    With ``mesh`` each rank matches its contiguous span of the pairs and
+    the results are exchanged with one all-gather (disjoint support,
+    summed). ``stats["match_pairs_local"]`` records this rank's pairs.
     """
-    _no_mesh(mesh)
     Pn = len(pairs)
     M = desc.shape[1]
+    lo_p, hi_p, procs = _span(Pn, mesh)
     if stats is not None:
-        stats["match_pairs_local"] = Pn
-    if Pn == 0:
-        return np.zeros((0, M), np.int32), np.zeros((0, M), bool)
-    d = torch.from_numpy(np.ascontiguousarray(desc)).to(device)
-    v = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
-    ab = torch.from_numpy(np.asarray(pairs, np.int64).reshape(Pn, 2)).to(device)
-    idx, good = [], []
-    for lo in range(0, Pn, _MATCH_CHUNK):
-        a, b = ab[lo : lo + _MATCH_CHUNK, 0], ab[lo : lo + _MATCH_CHUNK, 1]
-        ib, g, _ = match_descriptors(d[a], v[a], d[b], v[b])
-        idx.append(ib)
-        good.append(g)
-    return torch.cat(idx).cpu().numpy(), torch.cat(good).cpu().numpy()
+        stats["match_pairs_local"] = hi_p - lo_p
+    idx = np.zeros((Pn, M), np.int32)
+    good = np.zeros((Pn, M), bool)
+    if hi_p > lo_p:
+        d = torch.from_numpy(np.ascontiguousarray(desc)).to(device)
+        v = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
+        ab = torch.from_numpy(np.asarray(pairs[lo_p:hi_p], np.int64).reshape(-1, 2)).to(device)
+        parts_i, parts_g = [], []
+        for lo in range(0, hi_p - lo_p, _MATCH_CHUNK):
+            a, b = ab[lo : lo + _MATCH_CHUNK, 0], ab[lo : lo + _MATCH_CHUNK, 1]
+            ib, g, _ = match_descriptors(d[a], v[a], d[b], v[b])
+            parts_i.append(ib)
+            parts_g.append(g)
+        idx[lo_p:hi_p] = torch.cat(parts_i).cpu().numpy()
+        good[lo_p:hi_p] = torch.cat(parts_g).cpu().numpy()
+    if procs > 1:
+        pack = np.concatenate([idx[..., None], good[..., None].astype(np.int32)], axis=-1)
+        pack = allgather_hosts(mesh, pack).sum(axis=0)
+        idx, good = pack[..., 0].astype(np.int32), pack[..., 1] > 0
+    return idx, good
 
 
 def build_ba_problem(
@@ -143,7 +172,10 @@ def build_ba_problem(
 ):
     """Returns ``(BAProblem on device, info_dict)``; observations padded
     with w=0. ``detector`` selects the front-end (``"orb"`` host OpenCV,
-    ``"tpu"`` FAST+BRIEF on ``device``)."""
+    ``"tpu"`` FAST+BRIEF on ``device``); ``mesh`` (several processes)
+    process-shards the detection and matching (see the module docstring).
+    The problem is the same on every rank, and the same as without
+    ``mesh``."""
     K = len(keyframe_grays)
     info_stats: dict = {}
     uv_all, desc_all, valid_all, z_all = detect_keyframe_features(

@@ -31,8 +31,12 @@ This deviates from the reference only in the order of f32 summation. The
 small contractions (2×6, 3×3, 6×6 against a vector) are written as
 elementwise products and sums: no TF32 can enter them.
 
-The sharded forms of this step (``psum`` over a mesh, the landmark-blocked
-layout of ``ba/cluster.py``) come with the port's distributed layer.
+The same ``ba_step`` body runs on every rank of a mesh with its block of
+the observations (``parallel/sharded.py``): the ``psum=`` and ``psum_lm=``
+hooks complete each camera- and landmark-indexed sum (and the cost) across
+the ranks, and under the landmark-blocked layout of ``ba/cluster.py``
+``psum_lm`` is the identity. Both default to the identity, which leaves the
+single-device step as it is.
 """
 
 from __future__ import annotations
@@ -183,6 +187,10 @@ def _reducer(idx, n: int, slots, dtype):
     return lambda x: _seg_by_incidence(x, S)
 
 
+def _identity(x):
+    return x
+
+
 def _outer_sum(a, b):
     """Σ_k a[o, k, i] b[o, k, j] → (O, I, J)."""
     return (a[:, :, :, None] * b[:, :, None, :]).sum(1)
@@ -207,14 +215,27 @@ def _inv3(V):
     return torch.stack([bc, ca, ab], dim=-1) / det[:, None, None]
 
 
-def ba_step(prob: BAProblem, cfg: BAConfig, cam_slots=None, lm_slots=None):
+def ba_step(prob: BAProblem, cfg: BAConfig, cam_slots=None, lm_slots=None,
+            psum=None, psum_lm=None):
     """One damped GN step with Schur elimination + matrix-free CG.
 
     ``cam_slots``/``lm_slots``: :func:`make_reduction_slots` tables of the
     camera and landmark indices (:func:`reduction_slots` builds both); a side
     without one reduces through its incidence matrix. Returns
     ``(problem with updated poses and points, cost before the step)``.
+
+    ``psum``: applied after every camera-indexed sum and the cost — the
+    identity on one device, a sum over the ranks of a mesh when the
+    observations are split over them. ``psum_lm``: the same for the
+    landmark-indexed sums; defaults to ``psum`` (landmarks replicated), the
+    identity under the landmark-blocked layout, where every landmark's
+    observations live on its own rank. The odometry priors are added after
+    these sums: their inputs are replicated, so every rank adds the same.
     """
+    if psum is None:
+        psum = _identity
+    if psum_lm is None:
+        psum_lm = psum
     T, X = prob.poses, prob.points
     C, L = T.shape[0], X.shape[0]
     dt, dev = T.dtype, T.device
@@ -224,13 +245,19 @@ def ba_step(prob: BAProblem, cfg: BAConfig, cam_slots=None, lm_slots=None):
         T, X, prob.cam_idx, prob.lm_idx, prob.obs, prob.obs_z, cfg.depth_weight
     )
     w = prob.w * _huber_w(r, cfg.huber_delta)
-    cost = torch.sum(w * torch.sum(r * r, dim=-1))
+    cost = psum(torch.sum(w * torch.sum(r * r, dim=-1)))
 
     wJc = Jc * w[:, None, None]
     wJl = Jl * w[:, None, None]
 
-    seg_cam = _reducer(prob.cam_idx, C, cam_slots, dt)  # (O, ...) → (C, ...)
-    seg_lm = _reducer(prob.lm_idx, L, lm_slots, dt)  # (O, ...) → (L, ...)
+    red_cam = _reducer(prob.cam_idx, C, cam_slots, dt)  # (O, ...) → (C, ...)
+    red_lm = _reducer(prob.lm_idx, L, lm_slots, dt)  # (O, ...) → (L, ...)
+
+    def seg_cam(x):
+        return psum(red_cam(x))
+
+    def seg_lm(x):
+        return psum_lm(red_lm(x))
 
     U = seg_cam(_outer_sum(wJc, Jc))  # (C, 6, 6)
     V = seg_lm(_outer_sum(wJl, Jl))  # (L, 3, 3)
@@ -245,7 +272,8 @@ def ba_step(prob: BAProblem, cfg: BAConfig, cam_slots=None, lm_slots=None):
     # Relative-pose odometry priors (see BAProblem). Left-perturbation
     # Jacobians of r = log(Tm⁻¹ T_i T_j⁻¹): J_i = Ad(Tm⁻¹), J_j = −I
     # (small-residual approximation). Summed into the cameras through the
-    # edges' incidence matrices.
+    # edges' incidence matrices, after the sums over the ranks: the prior
+    # inputs are replicated, so every rank adds the same terms.
     prior_cross = None
     if prob.prior_i is not None:
         pi, pj, wp = prob.prior_i, prob.prior_j, prob.prior_w

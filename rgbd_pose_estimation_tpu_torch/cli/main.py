@@ -7,7 +7,9 @@ names and defaults:
   python -m rgbd_pose_estimation_tpu_torch.cli.main odom  --dataset D --out traj.txt
                                                           [--pose-graph]  (config 4)
   python -m rgbd_pose_estimation_tpu_torch.cli.main ba    --dataset D --out traj.txt
-                                                          (config 5 in one process)
+                                                          (config 5; across processes
+                                                          with --coordinator/--num-processes/
+                                                          --process-id)
   python -m rgbd_pose_estimation_tpu_torch.cli.main eval  --est traj.txt --gt gt.txt
   python -m rgbd_pose_estimation_tpu_torch.cli.main synth --out D           (fixture)
 
@@ -15,11 +17,17 @@ names and defaults:
 or a raw ICL-NUIM one. Every command runs on the CUDA device, and raises
 ``RuntimeError`` at once where there is none; ``--cpu`` runs it on the CPU.
 
-What needs the distributed layer raises ``NotImplementedError``: ``slam``,
-``--cpu-devices > 1`` (a mesh of devices), and ``ba`` on more than one device
-or process (``--mesh-devices``, ``--num-processes``, ``--coordinator``, or a
-config whose ``mesh`` spans more than one device). ``--ba-layout`` is parsed;
-it matters on a mesh only.
+``ba`` runs across processes as in the reference: start one process a
+device with ``--coordinator host:port --num-processes N --process-id i``
+(NCCL on the card, gloo with ``--cpu``); the mesh is the launch's
+(``parallel/mesh.py::runtime_mesh``), the build is process-sharded and the
+solve runs in the ``--ba-layout`` (``blocked``: landmark blocks rank-local
+after one all-to-all relayout; ``replicated``: observations split). A mesh
+of more than one device inside ONE process has no PyTorch counterpart:
+``--mesh-devices > 1``, ``--cpu-devices > 1`` and a config whose ``mesh``
+spans more than one device without a launched group raise
+``NotImplementedError``, as does ``slam`` (it needs
+``models/distributed_slam.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import dataclasses
 import itertools
 import json
 import logging
+import math
 import os
 import sys
 import time
@@ -37,7 +46,9 @@ import numpy as np
 import torch
 
 from rgbd_pose_estimation_tpu_torch.ba.build import build_ba_problem
+from rgbd_pose_estimation_tpu_torch.ba.cluster import block_ba_problem_device, unblock_points
 from rgbd_pose_estimation_tpu_torch.ba.schur import (
+    BAProblem,
     ba_step,
     reduction_slots,
     reprojection_rmse,
@@ -56,6 +67,22 @@ from rgbd_pose_estimation_tpu_torch.eval.traj_io import (
 from rgbd_pose_estimation_tpu_torch.graph.pose_graph import _inverse_np, optimize_trajectory
 from rgbd_pose_estimation_tpu_torch.models.frame_pair import FramePairEstimator
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
+from rgbd_pose_estimation_tpu_torch.parallel.mesh import (
+    REPLICATED,
+    check_config_consistency,
+    distributed_init,
+    fetch_global,
+    gather_global,
+    put_global_tree,
+    runtime_mesh,
+)
+from rgbd_pose_estimation_tpu_torch.parallel.sharded import (
+    ba_reduction_slots,
+    ba_step_blocked,
+    ba_step_sharded,
+    layout_slots,
+    problem_specs,
+)
 from rgbd_pose_estimation_tpu_torch.utils.checkpoint import (
     load_ba_checkpoint,
     load_odometry_checkpoint,
@@ -67,7 +94,8 @@ from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
 from rgbd_pose_estimation_tpu_torch.utils.timing import trace_context
 
 _ODOM_CKPT_EVERY = 50  # frames between two odometry checkpoints
-_NEEDS_MESH = "needs the distributed layer, which is not ported yet (ROADMAP.md queue 1 item 7b)"
+_IN_ONE_PROCESS = ("is a mesh of devices inside one process, which has no PyTorch "
+                   "counterpart: launch one process a device (ROADMAP.md queue 1 item 7b)")
 
 
 def _common(p: argparse.ArgumentParser):
@@ -76,8 +104,8 @@ def _common(p: argparse.ArgumentParser):
     p.add_argument("--trace-dir", help="torch.profiler trace output dir")
     p.add_argument("--cpu", action="store_true", help="run on the CPU, not the CUDA device")
     p.add_argument("--cpu-devices", type=int, default=0,
-                   help="virtual CPU device count (a device mesh: not "
-                   "ported yet, values > 1 raise)")
+                   help="virtual CPU device count (a device mesh inside one "
+                   "process: values > 1 raise)")
     p.add_argument("--log-level", default="INFO")
 
 
@@ -121,8 +149,8 @@ def build_parser():
     ba.add_argument("--intrinsics", default="tum_default",
                     choices=["tum_default", "tum_fr1", "icl_nuim", "from_dataset"])
     ba.add_argument("--mesh-devices", type=int, default=1,
-                    help="shard BA over this many devices (1 = single; more "
-                    "is not ported yet)")
+                    help="devices of a mesh inside this process (1; more "
+                    "raise: launch one process a device instead)")
     ba.add_argument("--ba-layout", choices=["blocked", "replicated"],
                     default="blocked",
                     help="distributed landmark layout (used on a mesh only)")
@@ -134,7 +162,7 @@ def build_parser():
     ba.add_argument("--resume", action="store_true")
     ba.add_argument("--fail-at-iter", type=int, default=-1,
                     help="TEST ONLY: raise after this BA iteration")
-    # Multi-host launch (one process per host): not ported yet.
+    # Multi-process launch (one process a device).
     ba.add_argument("--coordinator", help="host:port of process 0")
     ba.add_argument("--num-processes", type=int, default=1)
     ba.add_argument("--process-id", type=int, default=0)
@@ -181,7 +209,7 @@ def _setup(args):
     The CUDA device unless ``--cpu``; without one, raise."""
     logging.basicConfig(level=getattr(logging, args.log_level.upper(), 20))
     if args.cpu_devices > 1:
-        raise NotImplementedError(f"--cpu-devices > 1 (a device mesh) {_NEEDS_MESH}")
+        raise NotImplementedError(f"--cpu-devices > 1 {_IN_ONE_PROCESS}")
     if args.cpu:
         device = "cpu"
     elif torch.cuda.is_available():
@@ -311,27 +339,37 @@ def cmd_odom(args):
     return 0
 
 
-def _ba_single_process(args, cfg):
-    """``ba`` runs in one process on one device; raise on anything else."""
+def _ba_mesh_launch(args, cfg):
+    """Raise at once for a mesh of devices inside this process: more than
+    one mesh device, or a config mesh beyond one device with no group of
+    processes launched."""
     if args.mesh_devices > 1:
-        raise NotImplementedError(f"--mesh-devices > 1 {_NEEDS_MESH}")
-    if args.num_processes > 1 or args.coordinator:
-        raise NotImplementedError(f"a multi-process ba (--num-processes, --coordinator) {_NEEDS_MESH}")
-    if cfg.mesh.hosts * cfg.mesh.chips_per_host > 1:
+        raise NotImplementedError(f"--mesh-devices > 1 {_IN_ONE_PROCESS}")
+    if args.num_processes <= 1 and cfg.mesh.hosts * cfg.mesh.chips_per_host > 1:
         raise NotImplementedError(
-            f"the config's mesh ({cfg.mesh.hosts} x {cfg.mesh.chips_per_host} devices) {_NEEDS_MESH}"
+            f"the config's mesh ({cfg.mesh.hosts} x {cfg.mesh.chips_per_host} devices) "
+            f"in one process {_IN_ONE_PROCESS}"
         )
 
 
 def cmd_ba(args):
-    """Config 5's BA command, in one process on one device: dense
-    odometry gives the keyframes and their poses, then the keyframe feature
-    problem is built and solved step by step (a checkpoint after each step
-    with ``--checkpoint``), and the trajectory is re-anchored on the
-    refined keyframe poses."""
+    """Config 5's BA command: dense odometry gives the keyframes and their
+    poses, then the keyframe feature problem is built and solved step by
+    step (a checkpoint after each step with ``--checkpoint``), and the
+    trajectory is re-anchored on the refined keyframe poses.
+
+    Under a multi-process launch the build (detection and matching), the
+    relayout and the solve are process-sharded, while the initialising
+    dense odometry runs replicated on every process, so that the
+    multi-process trajectory compares with the single-process one. The
+    checkpoint holds global (unblocked) points, written by process 0 from a
+    fetch every process makes, so that a run may resume in another layout.
+    """
     cfg, device = _setup(args)
-    _ba_single_process(args, cfg)
+    _ba_mesh_launch(args, cfg)
     metrics = MetricsLogger(args.metrics)
+    distributed_init(args.coordinator, args.num_processes, args.process_id, device)
+
     seq = open_sequence(args.dataset)
     cam = _intrinsics(args.intrinsics, _dataset_cam(args.dataset))
     n = len(seq) if args.max_frames <= 0 else min(len(seq), args.max_frames)
@@ -350,14 +388,28 @@ def cmd_ba(args):
     kf_idx = [k.index for k in odo.keyframes]
     kf_poses = np.stack([k.pose for k in odo.keyframes])
 
+    # The mesh of the launch, built before the problem so that the
+    # detect/match front-end can be process-sharded.
+    mesh = None
+    if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+        mesh = runtime_mesh(cfg.mesh, args.mesh_devices, device=device)
+        if not check_config_consistency(mesh, cfg):
+            raise RuntimeError(
+                "the config hash differs across the processes: divergent configs "
+                "would deadlock a collective"
+            )
+
     prob, info = build_ba_problem(
         cam,
         [grays[i] for i in kf_idx],
         [depths[i] for i in kf_idx],
         kf_poses,
-        pad_to_multiple=max(8, args.mesh_devices),
+        # A multiple of the mesh size too (the reference's max(8, devices),
+        # equal for every power of two).
+        pad_to_multiple=math.lcm(8, mesh.size if mesh is not None else 1),
         max_features=cfg.frontend.max_features,
         detector=args.detector or cfg.frontend.detector,
+        mesh=mesh,
         device=device,
     )
     metrics.log(stage="ba_build", **{
@@ -382,23 +434,76 @@ def cmd_ba(args):
             start_iter = int(state["iter"])
             print(f"resumed BA at iteration {start_iter}", file=sys.stderr)
 
-    slots = reduction_slots(prob)  # the reduction tables, built once
+    # The layout. "blocked" (default on a mesh): landmark blocks rank-local,
+    # the observations moved frame-ordered → landmark-blocked by one
+    # all-to-all, overflow counted; a CG matvec then sums only the (C, 6)
+    # camera vector over the ranks. "replicated": observations split,
+    # landmarks on every rank.
+    blocked = mesh is not None and args.ba_layout == "blocked"
+    layout = None
+    if blocked:
+        prob, layout, cstats, dropped = block_ba_problem_device(mesh, prob)
+        slots = layout_slots(mesh, layout)
+        dropped = int(fetch_global(mesh, REPLICATED, dropped))
+        if dropped:
+            raise RuntimeError(
+                f"reshard_obs_to_blocks dropped {dropped} observations: the "
+                "per-(source, destination) capacity was underestimated"
+            )
+        metrics.log(ba_layout="blocked", reshard_dropped=dropped, **{
+            k: cstats[k] for k in
+            ("span_cut_before", "span_cut_after", "obs_imbalance",
+             "block_size", "obs_cap") if k in cstats
+        })
+    elif mesh is not None:
+        prob = put_global_tree(mesh, problem_specs(mesh, prob, blocked=False), prob)
+        slots = ba_reduction_slots(mesh, prob)
+        metrics.log(ba_layout="replicated")
+    else:
+        slots = reduction_slots(prob)  # the reduction tables, built once
+    specs = None if mesh is None else problem_specs(mesh, prob, blocked)
+
+    def global_points(p):
+        pts = fetch_global(mesh, specs.points if mesh is not None else REPLICATED, p.points)
+        return unblock_points(pts, layout) if blocked else pts
+
+    rank0 = mesh is None or mesh.rank == 0
     costs = []
     for it in range(start_iter, cfg.ba.outer_iters):
         t0 = time.perf_counter()
-        prob, cost = ba_step(prob, cfg.ba, *slots)
+        if blocked:
+            prob, cost = ba_step_blocked(mesh, prob, cfg.ba, slots)
+        elif mesh is not None:
+            prob, cost = ba_step_sharded(mesh, prob, cfg.ba, slots)
+        else:
+            prob, cost = ba_step(prob, cfg.ba, *slots)
         cost = float(cost)
         costs.append(cost)
         metrics.log(ba_iter=it, cost=cost, ms=(time.perf_counter() - t0) * 1e3)
         if args.checkpoint:
-            save_ba_checkpoint(
-                args.checkpoint,
-                poses=prob.poses.cpu().numpy(),
-                points=prob.points.cpu().numpy(),
-                iter=np.int64(it + 1),
-            )
+            # Fetched on EVERY process (a gather of split points is a
+            # collective); only process 0 writes.
+            ck_poses = fetch_global(mesh, REPLICATED, prob.poses)
+            ck_points = global_points(prob)
+            if rank0:
+                save_ba_checkpoint(args.checkpoint, poses=ck_poses, points=ck_points,
+                                   iter=np.int64(it + 1))
         if args.fail_at_iter == it:
             raise RuntimeError(f"fault injection: failing after BA iteration {it}")
+    if mesh is not None:
+        # The whole problem back on every process for the report.
+        points = torch.from_numpy(global_points(prob)).to(device)
+        prob = BAProblem(*(None if x is None else gather_global(x) for x in prob))
+        prob = prob._replace(points=points)
+    if blocked:
+        # The observations stay bucketed (a permutation of the originals
+        # plus w=0 pads; the RMSE does not depend on their order), but their
+        # landmark indices are rank-local: back to global ones.
+        real = layout.obs_perm >= 0
+        shard = np.arange(layout.n_shards).repeat(layout.obs_cap)
+        gl = layout.lm_perm[shard * layout.block_size + prob.lm_idx.cpu().numpy()]
+        gl[~real] = 0
+        prob = prob._replace(lm_idx=torch.from_numpy(gl.astype(np.int32)).to(device))
     rmse1 = float(reprojection_rmse(prob))
     metrics.log(reproj_rmse_after=rmse1)
     metrics.close()
@@ -412,7 +517,8 @@ def cmd_ba(args):
         while cur + 1 < len(kf_idx) and kf_idx[cur + 1] <= f:
             cur += 1
         out_poses.append(pose @ kf_inv[cur] @ T_opt[cur])
-    write_tum_trajectory(args.out, seq.timestamps[:n], np.stack(out_poses))
+    if rank0:
+        write_tum_trajectory(args.out, seq.timestamps[:n], np.stack(out_poses))
     print(json.dumps({
         **info,
         "reproj_rmse_before": rmse0,
@@ -425,9 +531,13 @@ def cmd_ba(args):
 
 def cmd_slam(args):
     """Config 5 as one command (sequence-parallel odometry across devices,
-    ring loop candidates, sharded BA): not ported yet."""
+    ring loop candidates, sharded BA): it needs ``models/distributed_slam.py``,
+    which is not ported yet."""
     _setup(args)
-    raise NotImplementedError(f"the slam command {_NEEDS_MESH}")
+    raise NotImplementedError(
+        "the slam command needs models/distributed_slam.py (item 6b), which is not "
+        "ported yet (ROADMAP.md queue 1 item 7b)"
+    )
 
 
 def cmd_eval(args):

@@ -7,8 +7,8 @@ overlap frames yield relative-anchor constraints that a small SE(3) pose
 graph solves to stitch the chunks into one consistent trajectory.
 
 The multi-process path (``mesh=``: each process tracks its own chunks, then
-one all-gather of the per-chunk results) needs the distributed layer and
-raises ``NotImplementedError``.
+one all-gather of the per-chunk results) is not ported yet and raises
+``NotImplementedError``.
 
 Math: chunk k stores local poses Q_k(f) (chunk-start camera = chunk world).
 A frame f in the overlap of chunks k-1 and k ties their global anchors
@@ -108,8 +108,8 @@ def sequence_parallel_odometry(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (chunks across processes) needs the distributed layer, "
-            "which is not ported yet (ROADMAP.md queue 1 item 6b)"
+            "mesh= (chunks across processes, the reference's _exchange_chunks) "
+            "is not ported yet (ROADMAP.md queue 1 item 6b)"
         )
     device = torch.device(device)
     n = len(depths)

@@ -10,12 +10,14 @@ class is composition and bookkeeping.
 The BA branch builds the problem once, reads its index arrays once for the
 reduction tables (``ba/schur.py::reduction_slots``), runs
 ``cfg.ba.outer_iters`` steps without reading anything back, and reads the
-refined keyframe poses once.
-The sharded BA step (``mesh=``) waits for the port's distributed layer.
+refined keyframe poses once. With ``mesh=`` (``parallel/mesh.py``) the
+steps are ``parallel/sharded.py::ba_step_sharded``: each rank holds its
+block of the observations, the poses and landmarks replicated.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import numpy as np
@@ -31,11 +33,19 @@ from rgbd_pose_estimation_tpu_torch.ba.schur import (
 from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
 from rgbd_pose_estimation_tpu_torch.graph.pose_graph import _inverse_np, optimize_trajectory
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
+from rgbd_pose_estimation_tpu_torch.parallel.mesh import REPLICATED, fetch_global, put_global_tree
+from rgbd_pose_estimation_tpu_torch.parallel.sharded import (
+    ba_reduction_slots,
+    ba_step_sharded,
+    local_tree,
+    problem_specs,
+    shard_tree,
+)
 from rgbd_pose_estimation_tpu_torch.utils.config import BAConfig, PipelineConfig
 from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
 
 
-def refine_keyframes(prob, cfg: BAConfig):
+def refine_keyframes(prob, cfg: BAConfig, mesh=None):
     """The BA schedule of :meth:`Slam.optimize` on a built keyframe problem.
 
     The initialisation is already good (odometry + pose graph): contaminated
@@ -44,23 +54,44 @@ def refine_keyframes(prob, cfg: BAConfig):
     problem refines poses instead of replacing them. Then half the steps,
     another prune, the other half. Returns ``(problem as first solved,
     problem solved, (steps,) costs)``, all on the device; nothing is read
-    back and the reduction tables are built once.
+    back and the reduction tables are built once. With ``mesh`` the
+    observations are split over its ranks (the two problems are then
+    ``BAProblem`` s of ``Shard`` s) and the steps are ``ba_step_sharded``.
     """
     prob = prune_observations(prob, cfg.huber_delta * 3.0, cfg.depth_weight)
     if cfg.prior_weight > 0:
         prob = with_odometry_priors(prob, cfg.prior_weight)
-    cam_slots, lm_slots = reduction_slots(prob)
+    if mesh is None:
+        cam_slots, lm_slots = reduction_slots(prob)
+
+        def step(p):
+            return ba_step(p, cfg, cam_slots=cam_slots, lm_slots=lm_slots)
+
+        def prune(p):
+            return prune_observations(p, cfg.huber_delta * 3.0, cfg.depth_weight)
+    else:
+        specs = problem_specs(mesh, prob, blocked=False)
+        prob = put_global_tree(mesh, specs, prob)
+        slots = ba_reduction_slots(mesh, prob)
+
+        def step(p):
+            return ba_step_sharded(mesh, p, cfg, slots)
+
+        def prune(p):  # per observation: on each rank's own block
+            pruned = prune_observations(local_tree(mesh, specs, p), cfg.huber_delta * 3.0,
+                                        cfg.depth_weight)
+            return shard_tree(mesh, specs, pruned)
     start, costs = prob, []
 
     def steps(p, n):
         for _ in range(n):
-            p, cost = ba_step(p, cfg, cam_slots=cam_slots, lm_slots=lm_slots)
+            p, cost = step(p)
             costs.append(cost)
         return p
 
     half = max(1, cfg.outer_iters // 2)
     prob = steps(prob, half)
-    prob = prune_observations(prob, cfg.huber_delta * 3.0, cfg.depth_weight)
+    prob = prune(prob)
     prob = steps(prob, cfg.outer_iters - half)
     return start, prob, torch.stack(costs)
 
@@ -102,19 +133,14 @@ class Slam:
 
         ``bundle_adjust`` additionally refines keyframe poses with feature-
         based Schur BA (requires gray images to have been kept); ``mesh``
-        (the sharded BA step) raises ``NotImplementedError`` until the
-        distributed layer is ported.
+        (``parallel/mesh.py``) splits the BA step's observations over its
+        ranks (``ba_step_sharded``). Every rank builds the same problem.
         """
         traj = optimize_trajectory(self.odo, self.cfg.pose_graph)
         if not bundle_adjust:
             return traj
         if not self.keep_images or any(g is None for g in self._grays):
             raise ValueError("bundle_adjust=True requires gray images in track()")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the sharded BA step) needs the distributed layer, "
-                "which is not ported yet (ROADMAP.md queue 1 item 6)"
-            )
 
         kf_idx = [k.index for k in self.odo.keyframes]
         kf_poses_pg = np.stack([traj[i] for i in kf_idx])
@@ -125,12 +151,14 @@ class Slam:
             [self._grays[i] for i in kf_idx],
             [self._depths[i] for i in kf_idx],
             kf_poses_pg,
-            pad_to_multiple=8,
+            # Observations pad to a multiple of the mesh size too (the
+            # reference's max(8, size), equal for every power of two).
+            pad_to_multiple=math.lcm(8, mesh.size if mesh is not None else 1),
             max_features=self.cfg.frontend.max_features,
             detector=self.cfg.frontend.detector,
             device=self.odo.device,
         )
-        start, prob, costs = refine_keyframes(prob, self.cfg.ba)
+        start, prob, costs = refine_keyframes(prob, self.cfg.ba, mesh)
         self.ba_report = {
             "pose_graph_trajectory": traj, "problem": start, "solved": prob,
             "costs": costs, "info": info,
@@ -138,7 +166,7 @@ class Slam:
 
         # Re-anchor all frames on the BA-refined keyframe poses: each
         # frame keeps its transform relative to its parent keyframe.
-        T_opt = prob.poses.cpu().numpy()
+        T_opt = fetch_global(mesh, REPLICATED, prob.poses)
         kf_inv = _inverse_np(kf_poses_pg)
         out = np.empty_like(traj)
         cur = 0

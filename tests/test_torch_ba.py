@@ -28,7 +28,7 @@ from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
 from rgbd_pose_estimation_tpu_torch.core.lie import se3_exp
 from rgbd_pose_estimation_tpu_torch.data.synthetic import synthetic_sequence
 from rgbd_pose_estimation_tpu_torch.features.frontend import match_descriptors
-from rgbd_pose_estimation_tpu_torch.parallel.mesh import partition_bounds
+from rgbd_pose_estimation_tpu_torch.parallel.mesh import make_mesh, partition_bounds
 from rgbd_pose_estimation_tpu_torch.utils.checkpoint import (
     load_ba_checkpoint,
     save_ba_checkpoint,
@@ -130,6 +130,25 @@ def test_ba_step_matches_reference(problem, priors, slots):
     assert torch.equal(out.poses[0], p.poses[0])  # the gauge camera stays
     again, _ = tschur.ba_step(p, CFG, **kw)
     assert torch.equal(again.poses, out.poses) and torch.equal(again.points, out.points)
+
+
+def test_ba_step_sum_hooks_sit_where_the_reference_puts_them(problem):
+    """``psum=``/``psum_lm=`` (the sums over a mesh's ranks) at the
+    reference's places: a hook that scales the cost and the camera-indexed
+    sums, another the landmark-indexed ones, with the priors added after
+    them; and the identity hooks leave the step bit for bit as it is."""
+    prob, p = jschur.with_odometry_priors(problem[0], 100.0), tschur.with_odometry_priors(problem[1], 100.0)
+    ref, cost_ref = jax.jit(lambda q: jschur.ba_step(
+        q, JCFG, psum=lambda x: 2.0 * x, psum_lm=lambda x: 0.5 * x))(prob)
+    out, cost = tschur.ba_step(p, CFG, psum=lambda x: 2.0 * x, psum_lm=lambda x: 0.5 * x)
+    np.testing.assert_allclose(float(cost), float(cost_ref), rtol=COST_RTOL)
+    np.testing.assert_allclose(out.poses.numpy(), np.asarray(ref.poses), rtol=0, atol=STATE_ATOL)
+    np.testing.assert_allclose(out.points.numpy(), np.asarray(ref.points), rtol=0, atol=STATE_ATOL)
+    slots = tschur.reduction_slots(p)
+    plain, plain_cost = tschur.ba_step(p, CFG, *slots)
+    same, same_cost = tschur.ba_step(p, CFG, *slots, psum=lambda x: x, psum_lm=lambda x: x)
+    assert torch.equal(plain.poses, same.poses) and torch.equal(plain.points, same.points)
+    assert torch.equal(plain_cost, same_cost)
 
 
 def test_prune_rmse_and_priors_match_reference(problem):
@@ -271,8 +290,17 @@ def test_batched_matching_equals_per_pair_loop(keyframes):
         assert np.array_equal(ib.numpy(), idx[k]) and np.array_equal(g.numpy(), good[k])
     empty = tbuild.match_keyframe_pairs(desc, valid, [], device="cpu")
     assert empty[0].shape == (0, 512)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tbuild.match_keyframe_pairs(desc, valid, pairs, mesh=object(), device="cpu")
+    # On a mesh of one rank (a gloo group of world size 1) the process-
+    # sharded matching is the whole matching, through the all-gather.
+    mesh = make_mesh(device="cpu")
+    try:
+        stats_mesh = {}
+        idx_mesh, good_mesh = tbuild.match_keyframe_pairs(desc, valid, pairs, mesh=mesh,
+                                                          stats=stats_mesh, device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+    assert np.array_equal(idx_mesh, idx) and np.array_equal(good_mesh, good)
+    assert stats_mesh == stats
     for n, procs in ((16, 1), (16, 3), (5, 8)):
         assert np.array_equal(partition_bounds(n, procs), jmesh.partition_bounds(n, procs))
 

@@ -7,9 +7,10 @@ against the JAX package's ``main``; ``pair`` and ``odom`` against the port's
 own ``FramePairEstimator`` and ``DenseOdometry`` on the same frames (those
 classes are held against the JAX package's in their own files); ``odom
 --resume`` and ``ba --fail-at-iter`` then ``--resume`` against one
-uninterrupted run. What needs the distributed layer raises
-``NotImplementedError``, and every command raises ``RuntimeError`` where
-there is no CUDA device and ``--cpu`` is not given.
+uninterrupted run. A mesh of devices inside one process and ``slam`` raise
+``NotImplementedError`` (``ba`` across processes is in
+``test_torch_cli_ranks.py``), and every command raises ``RuntimeError``
+where there is no CUDA device and ``--cpu`` is not given.
 """
 
 import _port_test_settings  # noqa: F401  (first: one torch thread a process)
@@ -196,15 +197,31 @@ def test_ba_fault_injection_then_resume_equals_one_run(data, tmp_path):
     assert np.abs(a - b).max() <= 1e-6
 
 
+def test_ba_with_a_coordinator_and_one_process_is_the_one_process_ba(data, tmp_path):
+    """``--coordinator`` without ``--num-processes > 1`` starts no group, as
+    in the reference: the run is the one-process ``ba``, bit for bit."""
+    common = ("--dataset", data["dir"], "--config", data["c5"], "--intrinsics", "from_dataset",
+              "--detector", "tpu", "--max-frames", "8", "--kf-interval", "4", "--cpu")
+    plain, coord = str(tmp_path / "plain.txt"), str(tmp_path / "coord.txt")
+    rc, out = _run(main, "ba", *common, "--out", plain)
+    rc2, out2 = _run(main, "ba", *common, "--out", coord, "--coordinator", "localhost:1234",
+                     "--process-id", "0")
+    assert rc == rc2 == 0 and json.loads(out) == json.loads(out2)
+    assert not torch.distributed.is_initialized()
+    (_, a), (_, b) = read_tum_trajectory(plain), read_tum_trajectory(coord)
+    assert np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("argv", [
     ["slam", "--dataset", "D", "--out", "t.txt"],
     ["eval", "--est", "a", "--gt", "b", "--cpu-devices", "2"],
     ["ba", "--dataset", "D", "--out", "t.txt", "--mesh-devices", "2"],
-    ["ba", "--dataset", "D", "--out", "t.txt", "--num-processes", "2"],
-    ["ba", "--dataset", "D", "--out", "t.txt", "--coordinator", "localhost:1234"],
     ["ba", "--dataset", "D", "--out", "t.txt", "--config", C5],  # its mesh: 2 x 4
-], ids=["slam", "cpu-devices", "mesh-devices", "num-processes", "coordinator", "config5-mesh"])
+], ids=["slam", "cpu-devices", "mesh-devices", "config5-mesh"])
 def test_what_needs_the_distributed_layer_raises(argv):
+    """A mesh of several devices inside ONE process has no PyTorch
+    counterpart, and ``slam`` waits for ``models/distributed_slam.py``.
+    ``ba`` across processes is held in ``test_torch_cli_ranks.py``."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7b"):
         main(argv + ["--cpu"])
 

@@ -33,6 +33,7 @@ from rgbd_pose_estimation_tpu_torch.graph.pose_graph import detect_loop_closures
 from rgbd_pose_estimation_tpu_torch.icp.dense import icp_track, icp_track_batch
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry, Keyframe
 from rgbd_pose_estimation_tpu_torch.models.slam import Slam
+from rgbd_pose_estimation_tpu_torch.parallel.mesh import make_mesh
 from rgbd_pose_estimation_tpu_torch.utils.config import KeyframeConfig
 from rgbd_pose_estimation_tpu_torch.utils.convert import (
     camera_from_reference,
@@ -315,8 +316,8 @@ def test_slam_bundle_adjust_waits_for_ba(sequence, slam_runs):
     frames (the same keyframes, the pose graph, then BA: build, prune,
     priors, 10 steps): trajectories within 1e-3, both on the rendered poses
     (ATE < 2 cm, the JAX package's own BA bound). Without the gray images
-    the reference's ValueError comes first; the sharded step (``mesh=``)
-    waits for the distributed layer."""
+    the reference's ValueError comes first. With ``mesh=`` a mesh of one
+    rank, the sharded step gives the same trajectory bit for bit."""
     poses_gt, depths, _ = sequence
     ref, port, _, _ = slam_runs
     # The on-device detector: host ORB finds no keypoint in 80x60 frames.
@@ -339,8 +340,18 @@ def test_slam_bundle_adjust_waits_for_ba(sequence, slam_runs):
     assert report["info"]["num_landmarks"] > 10
     for t in (traj, traj_ref):
         assert ate_rmse(_centers(t), _centers(poses_gt)) < 0.02
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        port.optimize(bundle_adjust=True, mesh=object())
+    # The sharded BA step on a mesh of one rank (a gloo group of world size
+    # 1): the same collectives as a larger mesh, the same numbers.
+    port.cfg = config_from_reference(
+        dataclasses.replace(ref_cfg, frontend=dataclasses.replace(ref_cfg.frontend, detector="tpu")))
+    try:
+        mesh = make_mesh(device="cpu")
+        traj_mesh = port.optimize(bundle_adjust=True, mesh=mesh)
+    finally:
+        port.cfg = port_cfg
+        torch.distributed.destroy_process_group()
+    assert np.array_equal(traj_mesh, traj)
+    assert mesh.comm["all_reduce"][0] > 0
     bare = Slam(CAM, port.cfg, keep_images=False, device="cpu")
     bare.track(depths[0])
     bare.track(depths[1])

@@ -37,7 +37,8 @@ for new in ("core.poly", "solvers.p3p", "solvers.pnp", "solvers.normals",
             "graph.pose_graph", "eval.ate", "eval.traj_io", "eval.report",
             "ba.schur", "ba.build", "data.png", "data.native_loader", "data.tum",
             "data.icl_nuim", "data.prefetch", "utils.checkpoint", "utils.timing",
-            "parallel.mesh", "cli.main", "models.sequence_parallel"):
+            "parallel.mesh", "cli.main", "models.sequence_parallel", "parallel.specs",
+            "parallel.sharded", "parallel.dryrun", "ba.cluster"):
     assert pkg.__name__ + "." + new in names, new
 # "tools" is the JAX repository's harness directory: the port's own tools
 # live in its package and import nothing of it. cv2 is imported by host ORB
