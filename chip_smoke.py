@@ -42,17 +42,26 @@ through the launch counters that each path went through its kernels:
   and the landmark-blocked BA at O = 98,304 with the all-to-all relayout,
   the ring similarity), the bytes a blocked CG iteration reduces, the
   sharded ``Slam.optimize(bundle_adjust=True, mesh=)`` against the call
-  without mesh, and ``dryrun_multichip(1)``;
+  without mesh, configuration 5 as one call (``distributed_slam`` over
+  phase ``ba``'s 64 frames: its ATE within 1.5 mm of the Slam's, a bit-equal
+  rerun, no observation dropped, 22 fused steps a tracked frame and a
+  verified candidate; ``sequence_parallel_odometry`` with the mesh
+  bit-equal to without), and ``dryrun_multichip(1)`` with its
+  configuration-5 tail;
 - the command line a user starts the system with, ``cli/main.py``'s
   ``main(argv)`` in this process (``cli``): ``synth`` writes a 64-frame
   640x480 directory, then ``pair`` (configurations 1 and 2), ``odom`` with
   the pose graph (configuration 3, 4's backend) and ``eval``, ``odom
   --resume`` across its checkpoint, ``ba`` in one process (configuration 5 on
-  a 1 x 1 mesh) with ``--fail-at-iter`` and ``--resume``; each command's
-  kernel launches counted exactly;
+  a 1 x 1 mesh) with ``--fail-at-iter`` and ``--resume``, ``slam``
+  (configuration 5 in one command; the file of a direct ``distributed_slam``
+  call byte for byte; ``--mesh-devices 2`` on one card raises before any
+  rank starts); each command's kernel launches counted exactly;
 - ``sequence_parallel_odometry`` over the first 32 of those frames, four
   chunks in four host threads and one after another, stitched by the anchor
   pose graph (``sequence_parallel``);
+- the scaling harness ``eval/scaling.py`` at its defaults on the one card:
+  the step mode (K3's launches counted) and the slam mode (``scaling``);
 - the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
   of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
   T6 against their plain versions, then the msac timing table at K = 4096
@@ -147,6 +156,7 @@ from rgbd_pose_estimation_tpu_torch.utils.config import (
 )
 
 DEV = "cuda"
+SMI = None  # the card's name and power limit as nvidia-smi gives them (set by main)
 
 # The bench problem (bench.py of the JAX package): the metric of record is
 # RANSAC hypotheses per second at this size.
@@ -2259,7 +2269,7 @@ def phase_ba():
         shutil.rmtree(root, ignore_errors=True)
     c5 = load_yaml_config(_ROOT / "configs" / "config5_distributed_ba.yaml")
     emit("ba", data=data, slam=record, solve=ba_large(c5.ba))
-    return slam, traj
+    return slam, traj, seq.groundtruth_aligned()[1], record["ate_m"]
 
 
 # Phase distributed: the distributed layer (parallel/, ba/cluster.py) on a
@@ -2342,11 +2352,109 @@ def dist_loop_candidates(slam):
     return pairs, T_init, stack([kfs[b].frame for _, b in pairs]), stack([kfs[a].frame for a, _ in pairs])
 
 
-def phase_distributed(slam, traj):
+# Configuration 5 as one call, distributed_slam on the world-1 mesh over
+# phase ba's 64 frames with phase ba's Slam configuration: its ATE may exceed
+# the Slam's by at most the JAX package's own margin
+# (tests/distributed/test_distributed_slam.py), and each tracked frame and
+# each verified loop candidate is one config-4 track, 22 fused steps.
+DSLAM_CHUNKS, DSLAM_OVERLAP = 2, 3
+DSLAM_ATE_MARGIN_M = 1.5e-3
+
+
+def tracked_frames(n, chunks, overlap):
+    """Frames the chunks of sequence_parallel_odometry track (a chunk's
+    first frame is its origin, not tracked)."""
+    from rgbd_pose_estimation_tpu_torch.models.sequence_parallel import chunk_ranges
+
+    return sum(e - s - 1 for s, e in chunk_ranges(n, chunks, overlap))
+
+
+def stage_of(records, name):
+    return next(r for r in records if r.get("stage") == name)
+
+
+def dist_slam_phase(mesh, slam, gt, ate_slam):
+    """distributed_slam over phase ba's frames on ``mesh`` (world 1, NCCL):
+    finite, within the margin of the Slam's ATE, bit-equal on a rerun, no
+    observation dropped, exactly 22 fused steps a tracked frame and a
+    verified candidate; and sequence_parallel_odometry with the mesh
+    bit-equal to without. Returns (record, fused-step launches)."""
+    from rgbd_pose_estimation_tpu_torch.models.distributed_slam import distributed_slam
+    from rgbd_pose_estimation_tpu_torch.models.sequence_parallel import sequence_parallel_odometry
+    from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
+
+    cam, cfg = slam.cam, slam.cfg
+    depths, grays = slam._depths, slam._grays
+    n = len(depths)
+    tracked = tracked_frames(n, DSLAM_CHUNKS, DSLAM_OVERLAP)
+
+    def call():
+        metrics = MetricsLogger()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj = distributed_slam(cam, depths, grays, mesh, cfg, n_chunks=DSLAM_CHUNKS,
+                                overlap=DSLAM_OVERLAP, detector="tpu", bundle_adjust=True,
+                                metrics=metrics)
+        torch.cuda.synchronize()
+        return traj, metrics.records, time.perf_counter() - t0
+
+    (traj, records, seconds), got = counted_launches(call)
+    candidates = stage_of(records, "loops")["candidates"]
+    expect_launches(got, {"icp_assoc_jtj_jtr": SLAM_STEPS * (tracked + candidates)},
+                    "distributed_slam")
+    again, _, seconds2 = call()
+
+    def centers(T):
+        return -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+
+    ate = ate_rmse(centers(traj), centers(gt))
+    ba = stage_of(records, "ba")
+    if not (traj.shape == (n, 4, 4) and np.isfinite(traj).all()):
+        raise AssertionError(f"distributed_slam: trajectory {traj.shape}, finite {np.isfinite(traj).all()}")
+    if not ate <= ate_slam + DSLAM_ATE_MARGIN_M:
+        raise AssertionError(f"distributed_slam: ATE {ate} m against the Slam's {ate_slam} m")
+    if not np.array_equal(traj, again):
+        raise AssertionError(f"distributed_slam: a rerun differs by {np.abs(traj - again).max()}")
+    if ba["reshard_dropped"] != 0:
+        raise AssertionError(f"distributed_slam: the relayout dropped {ba['reshard_dropped']}")
+
+    def odometry(with_mesh):
+        return sequence_parallel_odometry(cam, depths, n_chunks=DSLAM_CHUNKS, overlap=DSLAM_OVERLAP,
+                                          icp_cfg=cfg.icp, kf_cfg=cfg.keyframe, pg_cfg=cfg.pose_graph,
+                                          return_keyframes=True, mesh=mesh if with_mesh else None,
+                                          device=DEV)
+
+    (odo_mesh, kf_mesh), odo_got = counted_launches(lambda: odometry(True))
+    expect_launches(odo_got, {"icp_assoc_jtj_jtr": SLAM_STEPS * tracked},
+                    "sequence_parallel_odometry(mesh=)")
+    odo_none, kf_none = odometry(False)
+    if not (np.array_equal(odo_mesh, odo_none) and kf_mesh == kf_none):
+        raise AssertionError("sequence_parallel_odometry: mesh of one rank differs from mesh=None")
+    return {
+        "frames": n, "size": [cam.width, cam.height], "chunks": DSLAM_CHUNKS, "overlap": DSLAM_OVERLAP,
+        "detector": "tpu", "icp": vars(cfg.icp), "ba": vars(cfg.ba),
+        "keyframes": stage_of(records, "keyframes")["count"], "candidates": candidates,
+        "accepted_loops": stage_of(records, "loops")["accepted"],
+        "landmarks": stage_of(records, "ba_build")["num_landmarks"],
+        "observations": stage_of(records, "ba_build")["num_observations"],
+        "cost_first_last": [ba["cost_first"], ba["cost_last"]], "reshard_dropped": ba["reshard_dropped"],
+        "ate_m": ate, "ate_slam_m": ate_slam, "ate_margin_m": DSLAM_ATE_MARGIN_M,
+        "rerun_bit_equal": True, "tracked_frames": tracked,
+        "fused_step_launches": got["icp_assoc_jtj_jtr"],
+        "seconds": [seconds, seconds2], "frames_per_s": [n / seconds, n / seconds2],
+        "card": SMI,
+        "stage_seconds": {r["stage"]: r["t"] - records[0]["t"] for r in records},
+        "sequence_parallel_mesh_vs_none_bit_equal": True,
+        "sequence_parallel_launches": odo_got["icp_assoc_jtj_jtr"],
+    }, got["icp_assoc_jtj_jtr"]
+
+
+def phase_distributed(slam, traj, gt, ate_slam):
     """Every sharded function on a world-1 NCCL mesh against its twin, the
     launches of K3, K4 and the fused ICP step on the sharded paths, the BA
     steps with no read-back, the bytes a blocked CG iteration reduces, the
-    sharded Slam and the dry run. Returns the sharded paths' launches."""
+    sharded Slam, configuration 5 as one call (distributed_slam) and the dry
+    run. Returns the sharded paths' launches."""
     import dataclasses
 
     import torch.distributed as dist
@@ -2510,8 +2618,15 @@ def phase_distributed(slam, traj):
     out["slam_optimize_mesh"] = {"max_abs_diff": diff, "bit_equal": bool(np.array_equal(traj_mesh, traj)),
                                  "launches": got}
 
+    out["distributed_slam"], launches["distributed_slam"] = dist_slam_phase(mesh, slam, gt, ate_slam)
+
+    _build.reset_launch_counts()
     dryrun_multichip(1, device=DEV)
-    out["dryrun_multichip"] = "ok"
+    torch.cuda.synchronize()
+    tail = _build.launch_counts().get("icp_assoc_jtj_jtr", 0)
+    if tail < 1:
+        raise AssertionError("dryrun_multichip: its distributed_slam tail launched no fused ICP step")
+    out["dryrun_multichip"] = {"ok": True, "distributed_slam_tail_fused_steps": tail}
     out["launches_on_sharded_paths"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     dist.destroy_process_group()
@@ -2719,9 +2834,72 @@ def phase_cli(root):
                  "ms_per_iteration": statistics.median(iter_ms), "ms_per_iteration_all": iter_ms,
                  "ate_m": ate_rmse(centers(read_traj(ba_full)), centers(gt)),
                  "launches": counts, "resume_vs_one_run": ba_resume}
+    out["slam"], launches = cli_slam(root, d, cam, seq)
     out["seconds"].update(ba=seconds, ba_resume=resume_s, phase=time.perf_counter() - t_phase)
     emit("cli", **out)
-    return d
+    return d, launches
+
+
+def cli_slam(root, d, cam, seq):
+    """slam over the synth directory on the card: exit 0, the trajectory
+    written and its ATE printed, exactly 22 fused steps a tracked frame and a
+    verified candidate, the file of a direct distributed_slam call on the
+    same decoded frames byte for byte; and --mesh-devices 2 on one card
+    raises before any rank starts. Returns (record, fused-step launches)."""
+    from rgbd_pose_estimation_tpu_torch.eval.traj_io import write_tum_trajectory
+    from rgbd_pose_estimation_tpu_torch.models.distributed_slam import distributed_slam
+    from rgbd_pose_estimation_tpu_torch.parallel import spawn
+    from rgbd_pose_estimation_tpu_torch.parallel.mesh import make_mesh
+    from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
+
+    out_path, metrics = root / "slam.txt", root / "slam.jsonl"
+    tracked = tracked_frames(CLI_FRAMES, DSLAM_CHUNKS, DSLAM_OVERLAP)
+
+    def expected():
+        cands = stage_of([json.loads(line) for line in open(metrics)], "loops")["candidates"]
+        return {"icp_assoc_jtj_jtr": DEFAULT_ICP_STEPS * (tracked + cands)}
+
+    rc, printed, seconds, counts = counted(
+        "cli slam", expected, "slam", "--dataset", d, "--out", out_path, "--intrinsics", "from_dataset",
+        "--detector", "tpu", "--metrics", metrics)
+    res = json.loads(printed)
+    logged = [json.loads(line) for line in open(metrics)]
+    if rc != 0 or not out_path.exists() or "ate_rmse" not in res or not res["ate_rmse"] < SLAM_ATE_TOL_M:
+        raise AssertionError(f"cli slam: exit {rc}, {res}")
+    frames = [seq.frame(i) for i in range(CLI_FRAMES)]
+    mesh = make_mesh(device=DEV)
+    try:
+        direct = distributed_slam(cam, [f[2] for f in frames], [f[1] for f in frames], mesh,
+                                  PipelineConfig(), detector="tpu", metrics=MetricsLogger())
+    finally:
+        torch.distributed.destroy_process_group()
+    write_tum_trajectory(str(root / "slam_direct.txt"), seq.timestamps[:CLI_FRAMES], direct)
+    same_file = (root / "slam_direct.txt").read_bytes() == out_path.read_bytes()
+    if not same_file:
+        raise AssertionError(f"cli slam: differs from a direct call by {diff_report(read_traj(out_path), direct)}")
+
+    # Two ranks need two cards: with one, the command raises before any starts.
+    started = []
+    run_ranks = spawn.run_ranks
+    spawn.run_ranks = lambda *a: started.append(a) or [0, 0]
+    try:
+        cli_run("slam", "--dataset", d, "--out", root / "slam2.txt", "--mesh-devices", 2)
+        two_cards = "no error"
+    except ValueError as e:
+        two_cards = f"ValueError: {e}"
+    finally:
+        spawn.run_ranks = run_ranks
+    cards = torch.cuda.device_count()
+    if cards < 2 and (started or not two_cards.startswith("ValueError")):
+        raise AssertionError(f"cli slam --mesh-devices 2 on {cards} card: {two_cards}, ranks {started}")
+    io_stage = stage_of(logged, "io")
+    return {"exit": rc, "printed": res, "seconds": seconds, "frames_per_s_wall": CLI_FRAMES / seconds,
+            "card": SMI, "tracked_frames": tracked,
+            "candidates": stage_of(logged, "loops")["candidates"],
+            "accepted_loops": stage_of(logged, "loops")["accepted"],
+            "frames_decoded": io_stage["frames_decoded"], "launches": counts,
+            "file_equals_direct_call": same_file,
+            "mesh_devices_2_on_%d_card" % cards: two_cards}, counts["icp_assoc_jtj_jtr"]
 
 
 def phase_sequence_parallel(d):
@@ -2784,6 +2962,31 @@ def phase_sequence_parallel(d):
          icp_assoc_jtj_jtr_launches=expected["icp_assoc_jtj_jtr"],
          parallel_vs_serial=agree, ate_m=ate, modes=modes,
          phase_seconds=time.perf_counter() - t_phase)
+
+
+def phase_scaling():
+    """eval/scaling.py on the card at its defaults, one card: the step mode
+    (K3 through score_poses_3d3d_sharded, 4096 hypotheses x 1024
+    correspondences, a warm-up and 5 timed calls; the replicated and the
+    blocked BA step at 2048 observations) and the slam mode (distributed_slam
+    over 8 frames at 160x120, BA's features on the card). Returns K3's
+    launches in the step mode."""
+    from rgbd_pose_estimation_tpu_torch.eval import scaling
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    step = scaling.run(1)
+    torch.cuda.synchronize()
+    step_counts = {k: v for k, v in _build.launch_counts().items() if v}
+    expect_launches(step_counts, {"score_poses_3d3d": 6}, "scaling step mode")
+    _build.reset_launch_counts()
+    slam = scaling.run_slam(1, detector="tpu")
+    torch.cuda.synchronize()
+    slam_counts = {k: v for k, v in _build.launch_counts().items() if v}
+    if slam_counts.get("icp_assoc_jtj_jtr", 0) < 1 or set(slam_counts) != {"icp_assoc_jtj_jtr"}:
+        raise AssertionError(f"scaling slam mode: launches {slam_counts}")
+    emit("scaling", card=SMI, step=step, step_launches=step_counts, slam=slam, slam_launches=slam_counts)
+    return step_counts["score_poses_3d3d"]
 
 
 # ---------------------------------------------------------------------------
@@ -3166,7 +3369,8 @@ def phase_exact_msac(rows, harness, t1_device_ms, fma_tflops, op_mix_tflops):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
-    smi = subprocess.run(
+    global SMI
+    smi = SMI = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
@@ -3195,9 +3399,11 @@ def main():
 
     cli_root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     try:
-        phase_sequence_parallel(phase_cli(cli_root))
+        cli_dir, slam_command_launches = phase_cli(cli_root)
+        phase_sequence_parallel(cli_dir)
     finally:
         shutil.rmtree(cli_root, ignore_errors=True)
+    scaling_k3 = phase_scaling()
 
     # Launches on each kernel's own main path, each counted from zero: the
     # 3D-3D estimates for K1-K3, the 2D-3D estimates for K5, the synchronous
@@ -3211,6 +3417,11 @@ def main():
             raise AssertionError(f"{rec['name']} was not launched by the main path")
         if rec["name"] in dist_launches:  # K3, K4, the fused step: phase distributed
             rec["launches_sharded"] = dist_launches[rec["name"]]
+        if rec["name"] == "icp_assoc_jtj_jtr":  # configuration 5 as one call and one command
+            rec["launches_distributed_slam"] = dist_launches["distributed_slam"]
+            rec["launches_slam_command"] = slam_command_launches
+        if rec["name"] == "score_poses_3d3d":  # eval/scaling.py's step mode
+            rec["launches_scaling_step"] = scaling_k3
     # T1-T6: launches of the harness phase, counted from zero there.
     harness, t1_device_ms, fma, op_mix = phase_msac_opt()
     records += harness

@@ -7,27 +7,39 @@ names and defaults:
   python -m rgbd_pose_estimation_tpu_torch.cli.main odom  --dataset D --out traj.txt
                                                           [--pose-graph]  (config 4)
   python -m rgbd_pose_estimation_tpu_torch.cli.main ba    --dataset D --out traj.txt
-                                                          (config 5; across processes
-                                                          with --coordinator/--num-processes/
-                                                          --process-id)
+                                                          [--mesh-devices N] (config 5)
+  python -m rgbd_pose_estimation_tpu_torch.cli.main slam  --dataset D --out traj.txt
+                                                          [--mesh-devices N] (config 5,
+                                                          one command)
   python -m rgbd_pose_estimation_tpu_torch.cli.main eval  --est traj.txt --gt gt.txt
   python -m rgbd_pose_estimation_tpu_torch.cli.main synth --out D           (fixture)
 
 ``--dataset`` is a TUM RGB-D directory (rgb.txt/depth.txt[/groundtruth.txt])
 or a raw ICL-NUIM one. Every command runs on the CUDA device, and raises
-``RuntimeError`` at once where there is none; ``--cpu`` runs it on the CPU.
+``RuntimeError`` at once where there is none; ``--cpu`` runs it on the CPU,
+and so does ``--cpu-devices N``, which also caps a mesh at N devices.
 
-``ba`` runs across processes as in the reference: start one process a
-device with ``--coordinator host:port --num-processes N --process-id i``
-(NCCL on the card, gloo with ``--cpu``); the mesh is the launch's
-(``parallel/mesh.py::runtime_mesh``), the build is process-sharded and the
-solve runs in the ``--ba-layout`` (``blocked``: landmark blocks rank-local
-after one all-to-all relayout; ``replicated``: observations split). A mesh
-of more than one device inside ONE process has no PyTorch counterpart:
-``--mesh-devices > 1``, ``--cpu-devices > 1`` and a config whose ``mesh``
-spans more than one device without a launched group raise
-``NotImplementedError``, as does ``slam`` (it needs
-``models/distributed_slam.py``).
+``ba`` and ``slam`` run on a mesh of devices, one rank a device
+(``parallel/mesh.py``):
+
+- ``--mesh-devices N`` (a ``(1, N)`` mesh) or a config whose ``mesh`` spans
+  more than one device, in a process that runs in no group of ranks: the
+  command starts N ranks of itself (``parallel/spawn.py``; gloo ranks with
+  ``--cpu``, one CUDA card a rank otherwise, and ``ValueError`` before any
+  rank starts where there are fewer cards). Rank 0's output is the
+  command's, rank 0 writes the files, and a failing rank fails the command
+  with its error;
+- across processes, as in the reference: start one process a device with
+  ``--coordinator host:port --num-processes N --process-id i``;
+- otherwise on one device (``slam`` on a mesh of one rank, ``ba`` without
+  one).
+
+On a mesh, ``ba``'s build is rank-sharded and its solve runs in the
+``--ba-layout`` (``blocked``: landmark blocks rank-local after one
+all-to-all relayout; ``replicated``: observations split). ``slam`` is
+``models/distributed_slam.py`` (sequence-parallel odometry, ring loop
+candidates, split verification, the pose graph, blocked BA) over frames
+decoded on demand, each rank decoding only the frames its stages touch.
 """
 
 from __future__ import annotations
@@ -65,14 +77,17 @@ from rgbd_pose_estimation_tpu_torch.eval.traj_io import (
     write_tum_trajectory,
 )
 from rgbd_pose_estimation_tpu_torch.graph.pose_graph import _inverse_np, optimize_trajectory
+from rgbd_pose_estimation_tpu_torch.models.distributed_slam import distributed_slam
 from rgbd_pose_estimation_tpu_torch.models.frame_pair import FramePairEstimator
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
+from rgbd_pose_estimation_tpu_torch.parallel import spawn
 from rgbd_pose_estimation_tpu_torch.parallel.mesh import (
     REPLICATED,
     check_config_consistency,
     distributed_init,
     fetch_global,
     gather_global,
+    launch_shape,
     put_global_tree,
     runtime_mesh,
 )
@@ -94,8 +109,6 @@ from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
 from rgbd_pose_estimation_tpu_torch.utils.timing import trace_context
 
 _ODOM_CKPT_EVERY = 50  # frames between two odometry checkpoints
-_IN_ONE_PROCESS = ("is a mesh of devices inside one process, which has no PyTorch "
-                   "counterpart: launch one process a device (ROADMAP.md queue 1 item 7b)")
 
 
 def _common(p: argparse.ArgumentParser):
@@ -104,8 +117,8 @@ def _common(p: argparse.ArgumentParser):
     p.add_argument("--trace-dir", help="torch.profiler trace output dir")
     p.add_argument("--cpu", action="store_true", help="run on the CPU, not the CUDA device")
     p.add_argument("--cpu-devices", type=int, default=0,
-                   help="virtual CPU device count (a device mesh inside one "
-                   "process: values > 1 raise)")
+                   help="CPU device count (implies --cpu; caps a mesh of "
+                   "gloo ranks at this many devices)")
     p.add_argument("--log-level", default="INFO")
 
 
@@ -149,8 +162,8 @@ def build_parser():
     ba.add_argument("--intrinsics", default="tum_default",
                     choices=["tum_default", "tum_fr1", "icl_nuim", "from_dataset"])
     ba.add_argument("--mesh-devices", type=int, default=1,
-                    help="devices of a mesh inside this process (1; more "
-                    "raise: launch one process a device instead)")
+                    help="shard BA over this many devices (1 = single; more: "
+                    "the command starts one rank a device)")
     ba.add_argument("--ba-layout", choices=["blocked", "replicated"],
                     default="blocked",
                     help="distributed landmark layout (used on a mesh only)")
@@ -169,7 +182,7 @@ def build_parser():
     _common(ba)
 
     slam = sub.add_parser(
-        "slam", help="end-to-end distributed SLAM (config 5 in one command; not ported yet)"
+        "slam", help="end-to-end distributed SLAM (config 5 in one command)"
     )
     slam.add_argument("--dataset", required=True)
     slam.add_argument("--out", required=True, help="TUM trajectory output")
@@ -206,11 +219,10 @@ def build_parser():
 
 def _setup(args):
     """Logging, the device and the config: ``(PipelineConfig, device)``.
-    The CUDA device unless ``--cpu``; without one, raise."""
+    The CUDA device unless ``--cpu`` or ``--cpu-devices``; without one,
+    raise."""
     logging.basicConfig(level=getattr(logging, args.log_level.upper(), 20))
-    if args.cpu_devices > 1:
-        raise NotImplementedError(f"--cpu-devices > 1 {_IN_ONE_PROCESS}")
-    if args.cpu:
+    if args.cpu or args.cpu_devices > 0:
         device = "cpu"
     elif torch.cuda.is_available():
         device = "cuda"
@@ -339,17 +351,26 @@ def cmd_odom(args):
     return 0
 
 
-def _ba_mesh_launch(args, cfg):
-    """Raise at once for a mesh of devices inside this process: more than
-    one mesh device, or a config mesh beyond one device with no group of
-    processes launched."""
-    if args.mesh_devices > 1:
-        raise NotImplementedError(f"--mesh-devices > 1 {_IN_ONE_PROCESS}")
-    if args.num_processes <= 1 and cfg.mesh.hosts * cfg.mesh.chips_per_host > 1:
-        raise NotImplementedError(
-            f"the config's mesh ({cfg.mesh.hosts} x {cfg.mesh.chips_per_host} devices) "
-            f"in one process {_IN_ONE_PROCESS}"
-        )
+def _as_ranks(args, cfg, device):
+    """Run the command as the ranks of its mesh when it asks for more than
+    one device (``--mesh-devices``, a config mesh) and runs in no group of
+    ranks (``parallel/spawn.py``): rank 0's exit code. None otherwise."""
+    if args.num_processes > 1 or spawn.group_running():
+        return None
+    shape = spawn.command_mesh_shape(args.mesh_devices, cfg.mesh)
+    world = shape[0] * shape[1]
+    if world == 1:
+        return None
+    spawn.check_devices(world, device, args.cpu_devices or None)
+    return spawn.run_ranks("rgbd_pose_estimation_tpu_torch.cli.main:main", (args.argv,),
+                           world, shape, device)[0]
+
+
+def _metrics_path(args):
+    """The ``--metrics`` path; None on the ranks other than 0 of a group the
+    command started, which share its arguments."""
+    rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+    return None if launch_shape() is not None and rank > 0 else args.metrics
 
 
 def cmd_ba(args):
@@ -366,9 +387,11 @@ def cmd_ba(args):
     fetch every process makes, so that a run may resume in another layout.
     """
     cfg, device = _setup(args)
-    _ba_mesh_launch(args, cfg)
-    metrics = MetricsLogger(args.metrics)
+    rc = _as_ranks(args, cfg, device)
+    if rc is not None:
+        return rc
     distributed_init(args.coordinator, args.num_processes, args.process_id, device)
+    metrics = MetricsLogger(_metrics_path(args))
 
     seq = open_sequence(args.dataset)
     cam = _intrinsics(args.intrinsics, _dataset_cam(args.dataset))
@@ -529,15 +552,133 @@ def cmd_ba(args):
     return 0
 
 
+class _LazyFrames:
+    """Decode-on-demand, bounded-memory view of a dataset sequence.
+
+    On a mesh each rank tracks only its own chunks
+    (``models/sequence_parallel.py``), so decoding every frame on every rank
+    would waste the I/O the chunk split saves. This view decodes a frame the
+    first time its gray or its depth is indexed and keeps it in a bounded
+    LRU cache: each stage reads the frames in one pass (the chunks' tracking,
+    then the keyframes' pyramids and BA builds), and an unbounded cache would
+    hold ~1 GB of 640x480 frames by the end of a 573-frame run. ``decoded``
+    counts the DISTINCT frames this rank ever decoded (the sharded-I/O
+    observable; a decode again after eviction does not count);
+    ``peak_cached`` is the cache's high-water mark.
+    """
+
+    def __init__(self, seq, n: int, max_cached: int = 64):
+        self._seq = seq
+        self._n = n
+        self._max = max(int(max_cached), 1)
+        self._cache: dict = {}  # insertion-ordered: LRU by re-insertion
+        self._decoded: set = set()
+        self.peak_cached = 0
+        self.grays = _LazyView(self, 0)
+        self.depths = _LazyView(self, 1)
+
+    def __len__(self):
+        return self._n
+
+    @property
+    def decoded(self) -> int:
+        return len(self._decoded)
+
+    def _get(self, i: int):
+        if not isinstance(i, (int, np.integer)):
+            raise TypeError(f"_LazyFrames supports integer indexing only, got {type(i)}")
+        if i < 0:  # a list's semantics
+            i += self._n
+        if not 0 <= i < self._n:
+            raise IndexError(i)
+        i = int(i)
+        if i in self._cache:
+            val = self._cache.pop(i)  # refresh its LRU position
+            self._cache[i] = val
+            return val
+        _, gray, depth = self._seq.frame(i)
+        self._decoded.add(i)
+        while len(self._cache) >= self._max:
+            self._cache.pop(next(iter(self._cache)))
+        self._cache[i] = (gray, depth)
+        self.peak_cached = max(self.peak_cached, len(self._cache))
+        return self._cache[i]
+
+
+class _LazyView:
+    def __init__(self, store: _LazyFrames, slot: int):
+        self._store = store
+        self._slot = slot
+
+    def __len__(self):
+        return len(self._store)
+
+    def __getitem__(self, i: int):
+        return self._store._get(i)[self._slot]
+
+    def __iter__(self):
+        # Explicit, so that iterating decodes frame by frame by choice, not
+        # through the legacy __getitem__ protocol.
+        for i in range(len(self)):
+            yield self[i]
+
+
 def cmd_slam(args):
-    """Config 5 as one command (sequence-parallel odometry across devices,
-    ring loop candidates, sharded BA): it needs ``models/distributed_slam.py``,
-    which is not ported yet."""
-    _setup(args)
-    raise NotImplementedError(
-        "the slam command needs models/distributed_slam.py (item 6b), which is not "
-        "ported yet (ROADMAP.md queue 1 item 7b)"
+    """Config 5 as ONE command: sequence-parallel odometry, ring loop
+    candidates, split verification, the pose graph, blocked sharded BA
+    (``models/distributed_slam.py``) on the launch's mesh; a mesh of one
+    rank in a single process."""
+    cfg, device = _setup(args)
+    rc = _as_ranks(args, cfg, device)
+    if rc is not None:
+        return rc
+    distributed_init(args.coordinator, args.num_processes, args.process_id, device)
+    own_group = not torch.distributed.is_initialized()  # runtime_mesh starts one of one rank
+    try:
+        return _slam(args, cfg, device)
+    finally:
+        if own_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _slam(args, cfg, device):
+    metrics = MetricsLogger(_metrics_path(args))
+    seq = open_sequence(args.dataset)
+    cam = _intrinsics(args.intrinsics, _dataset_cam(args.dataset))
+    n = len(seq) if args.max_frames <= 0 else min(len(seq), args.max_frames)
+    frames = _LazyFrames(seq, n)
+
+    # The mesh of the launch: the group's ranks, or one rank in one process.
+    mesh = runtime_mesh(cfg.mesh, args.mesh_devices, device=device)
+    if not check_config_consistency(mesh, cfg):
+        raise RuntimeError(
+            "the config hash differs across the processes: divergent configs "
+            "would deadlock a collective"
+        )
+    traj = distributed_slam(
+        cam, frames.depths, frames.grays, mesh, cfg,
+        n_chunks=args.chunks, bundle_adjust=not args.no_ba, metrics=metrics,
+        detector=args.detector,
     )
+    # Decoding is split with the chunks: this rank decoded only its own
+    # chunks' frames and the keyframes its stages touch.
+    metrics.log(stage="io", frames_decoded=frames.decoded, frames_total=n,
+                peak_cached=frames.peak_cached)
+    if mesh.rank == 0:
+        write_tum_trajectory(args.out, seq.timestamps[:n], traj)
+
+    out = {"frames": n, "mesh_devices": args.mesh_devices, "chunks": args.chunks}
+    try:
+        gt_idx, gt_poses = seq.groundtruth_aligned()
+        keep = gt_idx < n
+        if keep.sum() >= 3:
+            out["ate_rmse"] = float(ate_rmse(_centers(traj[gt_idx[keep]]), _centers(gt_poses[keep])))
+            metrics.log(ate_rmse=out["ate_rmse"])
+    except Exception:
+        pass  # no ground truth
+    metrics.close()
+    print(json.dumps(out))
+    return 0
 
 
 def cmd_eval(args):
@@ -565,7 +706,9 @@ def cmd_synth(args):
 
 
 def main(argv=None):
+    argv = [str(a) for a in (sys.argv[1:] if argv is None else argv)]
     args = build_parser().parse_args(argv)
+    args.argv = argv  # what the ranks a command starts run again
     return {"pair": cmd_pair, "odom": cmd_odom, "eval": cmd_eval,
             "synth": cmd_synth, "ba": cmd_ba, "slam": cmd_slam}[args.cmd](args)
 

@@ -1,14 +1,18 @@
 """Sequence-parallel offline odometry: chunked processing + graph stitching.
 
-Counterpart of the JAX package's ``models/sequence_parallel.py``, on one
-device. The sequence is split into P overlapping chunks; each chunk runs
-dense ICP odometry *independently*, in a host thread of its own, and the
-overlap frames yield relative-anchor constraints that a small SE(3) pose
-graph solves to stitch the chunks into one consistent trajectory.
+Counterpart of the JAX package's ``models/sequence_parallel.py``. The
+sequence is split into P overlapping chunks; each chunk runs dense ICP
+odometry *independently*, in a host thread of its own, and the overlap
+frames yield relative-anchor constraints that a small SE(3) pose graph
+solves to stitch the chunks into one consistent trajectory.
 
-The multi-process path (``mesh=``: each process tracks its own chunks, then
-one all-gather of the per-chunk results) is not ported yet and raises
-``NotImplementedError``.
+Across ranks (``mesh=``, a ``parallel/mesh.py`` mesh of several ranks):
+each rank tracks only its contiguous share of the chunks, then the
+fixed-size per-chunk pose arrays and keyframe flags are exchanged with ONE
+``allgather_hosts``, after which every rank runs the same anchor pose graph
+on the same inputs. Frames outside a rank's chunks are never read from
+``depths``, so a lazy loader (``cli/main.py``) shards the decoding too. On a
+mesh of one rank the result is the one of ``mesh=None``, bit for bit.
 
 Math: chunk k stores local poses Q_k(f) (chunk-start camera = chunk world).
 A frame f in the overlap of chunks k-1 and k ties their global anchors
@@ -40,6 +44,7 @@ from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
 from rgbd_pose_estimation_tpu_torch.core.lie import se3_inverse
 from rgbd_pose_estimation_tpu_torch.graph.pose_graph import optimize_pose_graph
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
+from rgbd_pose_estimation_tpu_torch.parallel.mesh import allgather_hosts
 from rgbd_pose_estimation_tpu_torch.utils.config import (
     IcpConfig,
     KeyframeConfig,
@@ -69,6 +74,45 @@ def _run_chunk(cam, icp_cfg, kf_cfg, frames, device):
     return odo.trajectory(), [k.index for k in odo.keyframes]
 
 
+def _exchange_chunks(mesh, ranges, local, local_results):
+    """All-gather the per-chunk odometry results across the ranks.
+
+    Packs each local chunk into a fixed-size ``(max_len, 17)`` f32 row (16
+    = the flattened 4x4 pose, 1 = the keyframe flag; the poses are f32 at
+    both ends, so their bits ride exactly), exchanges the disjoint-support
+    ``(C, max_len, 17)`` arrays with ONE ``allgather_hosts`` and sums the
+    ranks' contributions. Returns the full per-chunk ``(poses, kf_indices)``
+    list, the same on every rank.
+    """
+    C = len(ranges)
+    max_len = max(e - s for s, e in ranges)
+    pack = np.zeros((C, max_len, 17), np.float32)
+    for c, res in zip(local, local_results):
+        L = ranges[c][1] - ranges[c][0]
+        if isinstance(res, tuple):
+            poses, kfs = res
+            for k in kfs:
+                pack[c, k, 16] = 1.0
+        else:
+            # A poses-only runner: a sentinel in the keyframe channel keeps
+            # the None across the exchange (return_keyframes=True must
+            # still raise, as on one rank).
+            poses = res
+            pack[c, :L, 16] = -1.0
+        pack[c, :L, :16] = np.asarray(poses, np.float32).reshape(L, 16)
+    total = allgather_hosts(mesh, pack).sum(axis=0)
+    out = []
+    for c, (s, e) in enumerate(ranges):
+        L = e - s
+        poses = total[c, :L, :16].reshape(L, 4, 4)
+        if L and total[c, 0, 16] < 0:
+            out.append(poses)  # the owner ran a poses-only runner
+        else:
+            kfs = [int(k) for k in np.nonzero(total[c, :L, 16] > 0)[0]]
+            out.append((poses, kfs))
+    return out
+
+
 def local_chunk_indices(n_chunks: int, n_procs: int, pid: int) -> list:
     """Contiguous chunk→process partition: process ``pid``'s chunk ids.
 
@@ -92,7 +136,7 @@ def sequence_parallel_odometry(
     return_keyframes: bool = False,
     mesh=None,
     stats: Optional[dict] = None,
-    device="cuda",
+    device=None,
 ):
     """Estimate the full trajectory with chunk-parallel odometry on ``device``.
 
@@ -103,14 +147,17 @@ def sequence_parallel_odometry(
     first frame = identity); with ``return_keyframes=True`` also the sorted
     global frame indices of the keyframes each chunk's tracker chose
     (overlap-frame duplicates dropped). ``stats`` (a dict, mutated in place)
-    reports ``local_chunks`` / ``frames_tracked``. The anchor pose graph
-    runs on ``device``.
+    reports ``local_chunks`` / ``frames_tracked`` of this rank. The anchor
+    pose graph runs on ``device``: by default the mesh's device, else the
+    CUDA device.
+
+    ``mesh`` (``parallel/mesh.py``): with more than one rank, each rank
+    tracks ONLY its contiguous share of the chunks and the per-chunk results
+    are exchanged with one all-gather before the stitch, which every rank
+    runs alike (module docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (chunks across processes, the reference's _exchange_chunks) "
-            "is not ported yet (ROADMAP.md queue 1 item 6b)"
-        )
+    if device is None:
+        device = mesh.device if mesh is not None else "cuda"
     device = torch.device(device)
     n = len(depths)
     ranges = chunk_ranges(n, n_chunks, overlap)
@@ -118,7 +165,9 @@ def sequence_parallel_odometry(
     runner = chunk_runner or (
         lambda frames: _run_chunk(cam, icp_cfg, kf_cfg, frames, device)
     )
-    local = list(range(C))
+    # A rank is a process: the reference's process count is the group's size.
+    procs = mesh.size if mesh is not None else 1
+    local = local_chunk_indices(C, procs, mesh.rank) if procs > 1 else list(range(C))
     if stats is not None:
         stats["local_chunks"] = len(local)
         stats["frames_tracked"] = sum(ranges[c][1] - ranges[c][0] for c in local)
@@ -137,8 +186,11 @@ def sequence_parallel_odometry(
             results = list(ex.map(_run, local))
     else:
         results = [_run(c) for c in local]
+    if procs > 1:
+        results = _exchange_chunks(mesh, ranges, local, results)
 
-    # Custom runners may return poses only. Poses are normalized to f32.
+    # Custom runners may return poses only. Poses are normalized to f32 on
+    # every path (the exchange packs f32).
     locals_, kfs_ = zip(*(
         res if isinstance(res, tuple) else (res, None) for res in results
     ))

@@ -8,11 +8,15 @@ group of one).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rgbd_pose_estimation_tpu_torch.ba.cluster import block_ba_problem
 from rgbd_pose_estimation_tpu_torch.ba.schur import make_synthetic_ba_problem, with_odometry_priors
+from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
 from rgbd_pose_estimation_tpu_torch.core.lie import se3_exp
+from rgbd_pose_estimation_tpu_torch.data.synthetic import synthetic_sequence
+from rgbd_pose_estimation_tpu_torch.models.distributed_slam import distributed_slam
 from rgbd_pose_estimation_tpu_torch.parallel.mesh import fetch_global, make_mesh
 from rgbd_pose_estimation_tpu_torch.parallel.sharded import (
     ba_solve_blocked,
@@ -23,7 +27,7 @@ from rgbd_pose_estimation_tpu_torch.parallel.sharded import (
     score_poses_3d3d_sharded,
 )
 from rgbd_pose_estimation_tpu_torch.parallel.specs import REPLICATED, ROWS
-from rgbd_pose_estimation_tpu_torch.utils.config import BAConfig, MeshConfig
+from rgbd_pose_estimation_tpu_torch.utils.config import BAConfig, IcpConfig, MeshConfig, PipelineConfig
 
 
 def _check(ok: bool, what: str) -> None:
@@ -38,13 +42,13 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     equations (K4 and an ``all_reduce``), the ring all-pairs keyframe
     similarity, a Schur BA step with observations split over the ``(host,
     chip)`` mesh, the landmark-blocked solve with odometry priors, and the
-    all-to-all observation relayout, each once on tiny shapes; raises if an
-    output is malformed. The data come from fixed seeds, the same on every
-    rank.
-
-    The reference's tail, the configuration-5 pipeline through
-    ``models/distributed_slam.py``, waits for that module's port (ROADMAP.md
-    queue 1 item 6b).
+    all-to-all observation relayout, each once on tiny shapes, then the
+    configuration-5 pipeline end to end on a 6-frame 64x48 rendered
+    sequence (``models/distributed_slam.py``: sequence-parallel odometry,
+    ring candidates, split verification, pose graph, blocked BA); raises if
+    an output is malformed. The data come from fixed seeds, the same on
+    every rank. BA's features come from the FAST+BRIEF detector on the
+    device (the reference takes the config's host ORB, which needs OpenCV).
     """
     hosts = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     mesh = make_mesh(MeshConfig(hosts=hosts, chips_per_host=n_devices // hosts), device=device)
@@ -113,3 +117,12 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     _check(int(dropped) == 0, f"relayout dropped {int(dropped)}")
     valid = fetch_global(mesh, ROWS, resharded["valid"])
     _check(int(valid.sum()) == int((prob.w >= 0).sum()), f"relayout kept {int(valid.sum())} of {O}")
+
+    # Configuration 5 end to end on a tiny rendered sequence, on this mesh.
+    cam = CameraIntrinsics(64.0, 64.0, 31.5, 23.5, 64, 48)
+    _, depths, intens = synthetic_sequence(cam, gen(7), 6, 0.008, device=dev)
+    cfg = PipelineConfig(icp=IcpConfig(levels=2, iters_per_level=(3, 4)),
+                         ba=BAConfig(outer_iters=2, cg_iters=5))
+    traj = distributed_slam(cam, [d.cpu().numpy() for d in depths], [g.cpu().numpy() for g in intens],
+                            mesh, cfg, n_chunks=2, kf_stride=2, detector="tpu")
+    _check(traj.shape == (6, 4, 4) and bool(np.isfinite(traj).all()), f"trajectory {traj.shape}")

@@ -9,8 +9,11 @@ the CPU, and its ``(host, chip)`` shape is ``(hosts, ranks a host)``.
 - A 1×1 mesh is a real group of world size 1 (``init_process_group`` with a
   ``HashStore``), so it runs the same collectives as a larger one.
 - A mesh of more than one device inside one process (the reference's
-  virtual meshes, ``--mesh-devices``) has no counterpart and raises
-  ``NotImplementedError`` naming ROADMAP.md queue 1 item 7b.
+  virtual meshes) has no counterpart: here it raises
+  ``NotImplementedError``. A command that asks for one (``--mesh-devices``,
+  a config mesh, the scaling harness's sizes) starts its own ranks instead
+  (``parallel/spawn.py``); their mesh takes the shape the command asked for
+  (:func:`set_launch_shape`).
 - A backend that cannot start raises; nothing falls back to another.
 
 The collectives map one to one: ``psum`` → ``all_reduce(SUM)``, ``pmax`` /
@@ -50,8 +53,26 @@ from rgbd_pose_estimation_tpu_torch.utils.config import MeshConfig
 
 _VIRTUAL = (
     "a mesh of more than one device inside one process has no PyTorch "
-    "counterpart: launch one rank a device (ROADMAP.md queue 1 item 7b)"
+    "counterpart: run one rank a device (the ba and slam commands and "
+    "eval/scaling.py start their own, parallel/spawn.py; or launch them "
+    "with distributed_init)"
 )
+
+# The (hosts, chips) shape of a group that a command started for itself
+# (parallel/spawn.py), set in each of its ranks; None elsewhere.
+_launch_shape: Optional[tuple] = None
+
+
+def set_launch_shape(shape) -> None:
+    """Give the meshes of this rank's group the shape its command asked
+    for (``parallel/spawn.py`` calls this in each rank it starts)."""
+    global _launch_shape
+    _launch_shape = None if shape is None else tuple(int(s) for s in shape)
+
+
+def launch_shape() -> Optional[tuple]:
+    """The shape :func:`set_launch_shape` gave, or None."""
+    return _launch_shape
 
 
 @dataclasses.dataclass(eq=False)
@@ -228,13 +249,20 @@ def runtime_mesh(cfg: Optional[MeshConfig] = None, mesh_devices: int = 0, device
     launched group of more than one rank the mesh is ``(world /
     ranks_a_host, ranks_a_host)``, and a ``cfg`` that describes another
     multi-host shape is a launch error that raises ``ValueError``, as in the
-    reference. A single process gets a 1×1 mesh; ``mesh_devices > 1`` or a
-    ``cfg`` larger than one device there (the reference's virtual meshes)
-    raise ``NotImplementedError``.
+    reference. In the ranks a command started for itself
+    (``parallel/spawn.py``) the mesh has the shape the command asked for,
+    as the reference's single-process mesh has. A single process gets a 1×1
+    mesh; ``mesh_devices > 1`` or a ``cfg`` larger than one device there
+    (the reference's virtual meshes) raise ``NotImplementedError``.
     """
     cfg = cfg if cfg is not None else MeshConfig()
     dev = _device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
+    if world > 1 and _launch_shape is not None:
+        group = _world_group(dev, world)
+        if int(np.prod(_launch_shape)) != world:
+            raise ValueError(f"a {_launch_shape} mesh on a group of {world} ranks")
+        return Mesh(group, _launch_shape, (cfg.host_axis, cfg.chip_axis), dev)
     if world > 1:
         group = _world_group(dev, world)
         rows = _ranks_by_host(group)
@@ -256,7 +284,7 @@ def runtime_mesh(cfg: Optional[MeshConfig] = None, mesh_devices: int = 0, device
             )
         return Mesh(group, (hosts, width), (cfg.host_axis, cfg.chip_axis), dev)
     if mesh_devices and mesh_devices > 1:
-        raise NotImplementedError(f"--mesh-devices {mesh_devices}: {_VIRTUAL}")
+        raise NotImplementedError(f"mesh_devices={mesh_devices}: {_VIRTUAL}")
     if cfg.hosts * cfg.chips_per_host > 1:
         raise NotImplementedError(
             f"the config's mesh ({cfg.hosts} x {cfg.chips_per_host} devices) in one process: {_VIRTUAL}"
@@ -432,5 +460,5 @@ __all__ = [
     "ring_shift", "make_mesh", "runtime_mesh", "put_global", "put_global_tree",
     "partition_bounds", "put_process_rows", "gather_global", "fetch_global",
     "allgather_hosts", "distributed_init", "config_hash", "check_config_consistency",
-    "block_of",
+    "block_of", "set_launch_shape", "launch_shape",
 ]

@@ -185,18 +185,18 @@ def _parallel(workdir: pathlib.Path, rank: int, world: int) -> dict:
 
 def _cli(workdir: pathlib.Path, rank: int, world: int) -> dict:
     """``main(argv)`` of ``ba`` in this rank's process: the blocked and the
-    replicated layouts, a run cut by ``--fail-at-iter`` and its resume."""
+    replicated layouts, a run cut by ``--fail-at-iter`` and its resume; then
+    ``slam`` across the processes."""
     import contextlib
     import io
     import json
 
     from rgbd_pose_estimation_tpu_torch.cli.main import main
 
-    inp = (workdir / "argv.json").read_text()
-    base = json.loads(inp) + [
-        "--coordinator", f"file://{workdir / 'store'}",
-        "--num-processes", str(world), "--process-id", str(rank),
-    ]
+    argv = json.loads((workdir / "argv.json").read_text())
+    launch = ["--coordinator", f"file://{workdir / 'store'}",
+              "--num-processes", str(world), "--process-id", str(rank)]
+    base = argv["ba"] + launch
     res = {"seconds": {}}  # wall seconds of each command
 
     def run(*extra):
@@ -219,10 +219,115 @@ def _cli(workdir: pathlib.Path, rank: int, world: int) -> dict:
     except RuntimeError as e:
         res["fault"] = str(e)
     res["resumed"] = run("--out", str(workdir / "resumed.txt"), "--checkpoint", ck, "--resume")
+    base = argv["slam"] + launch
+    res["slam"] = run("--out", str(workdir / "slam_ranks.txt"),
+                      "--metrics", str(workdir / f"slam_ranks{rank}.jsonl"))
     return res
 
 
-_SUITES = {"parallel": _parallel, "cli": _cli}
+def _dslam(workdir: pathlib.Path, rank: int, world: int) -> dict:
+    """``models/distributed_slam.py`` and the ``mesh=`` path of
+    ``models/sequence_parallel.py`` on a (1, world) gloo mesh: the pipeline
+    without BA (its candidates and verified pairs recorded), with BA, the
+    verification under a finest source stride of 4, and the sequence-parallel
+    odometry with the default and a poses-only chunk runner."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rgbd_pose_estimation_tpu_torch.models import distributed_slam as ds
+    from rgbd_pose_estimation_tpu_torch.models.sequence_parallel import sequence_parallel_odometry
+    from rgbd_pose_estimation_tpu_torch.parallel import mesh as M
+    from rgbd_pose_estimation_tpu_torch.utils.config import IcpConfig, PipelineConfig
+    from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(workdir / "store"), world),
+                            rank=rank, world_size=world)
+    inp = torch.load(workdir / "inputs.pt", weights_only=False)
+    mesh = M.runtime_mesh(device="cpu")
+    cam, depths, grays = inp["cam"], inp["depths"], inp["grays"]
+    cfg = PipelineConfig(icp=IcpConfig(**inp["icp_cfg"]), ba=inp["ba_cfg"],
+                         frontend=inp["frontend"])
+    res = {}
+
+    # The pipeline without BA, its ring candidates and verified pairs kept.
+    seen = {}
+    ring, verify = ds.ring_loop_candidates, ds.verify_loop_pairs
+
+    def ring_kept(*a, **kw):
+        seen["pairs"] = ring(*a, **kw)
+        return seen["pairs"]
+
+    def verify_kept(mesh_, cam_, icp_cfg, pairs, kf_poses, frame_of, **kw):
+        seen["verify_in"] = (pairs, kf_poses, frame_of)
+        seen["verified"] = verify(mesh_, cam_, icp_cfg, pairs, kf_poses, frame_of, **kw)
+        return seen["verified"]
+
+    ds.ring_loop_candidates, ds.verify_loop_pairs = ring_kept, verify_kept
+    try:
+        metrics = MetricsLogger()
+        res["traj"] = ds.distributed_slam(cam, depths, grays, mesh, cfg, n_chunks=2,
+                                          kf_stride=1, bundle_adjust=False, metrics=metrics)
+    finally:
+        ds.ring_loop_candidates, ds.verify_loop_pairs = ring, verify
+    res["records"] = metrics.records
+    res["pairs"], res["verified"] = seen["pairs"], seen["verified"]
+    pairs, kf_poses, frame_of = seen["verify_in"]
+
+    # The reference's overlap ratio under a finest source stride of 4.
+    strided = dataclasses.replace(cfg.icp, **inp["stride"])
+    res["verified_stride4"] = ds.verify_loop_pairs(mesh, cam, strided, pairs, kf_poses, frame_of)
+    metrics = MetricsLogger()
+    ds.distributed_slam(cam, depths, grays, mesh, dataclasses.replace(cfg, icp=strided), n_chunks=2,
+                        kf_stride=1, bundle_adjust=False, metrics=metrics)
+    res["records_stride4"] = metrics.records
+
+    # The whole pipeline with blocked BA.
+    metrics = MetricsLogger()
+    res["traj_ba"] = ds.distributed_slam(cam, depths, grays, mesh, cfg, n_chunks=2, kf_stride=2,
+                                         detector="tpu", metrics=metrics)
+    res["records_ba"] = metrics.records
+
+    # Sequence-parallel odometry: the default runner, and a poses-only one.
+    stats = {}
+    sp_kw = dict(n_chunks=3, overlap=2, icp_cfg=cfg.icp, kf_cfg=cfg.keyframe, return_keyframes=True)
+    res["sp"] = sequence_parallel_odometry(cam, depths, mesh=mesh, stats=stats, **sp_kw) + (stats,)
+
+    def poses_only(frames):
+        return np.stack([np.diag([1.0, 1.0, 1.0, 1.0 + f]) for f in frames]).astype(np.float32)
+
+    kw = dict(n_chunks=3, overlap=2, chunk_runner=poses_only, mesh=mesh)
+    res["poses_only"] = sequence_parallel_odometry(None, list(range(7)), **kw)
+    try:
+        sequence_parallel_odometry(None, list(range(7)), return_keyframes=True, **kw)
+        res["poses_only_keyframes"] = None
+    except ValueError as e:
+        res["poses_only_keyframes"] = str(e)
+
+    # The same calls on one rank: a mesh of this rank alone (a group of one
+    # of the world's ranks), rank 0 the pipeline, rank 1 the odometry.
+    alone = [dist.new_group([r]) for r in range(world)][rank]
+    one = M.Mesh(alone, (1, 1), mesh.axis_names, mesh.device)
+    if rank == 0:
+        res["one"] = {
+            "traj": ds.distributed_slam(cam, depths, grays, one, cfg, n_chunks=2, kf_stride=1,
+                                        bundle_adjust=False),
+            "traj_ba": ds.distributed_slam(cam, depths, grays, one, cfg, n_chunks=2, kf_stride=2,
+                                           detector="tpu"),
+        }
+    else:
+        stats = {}
+        res["one"] = {"sp": sequence_parallel_odometry(cam, depths, mesh=None, stats=stats,
+                                                       device="cpu", **sp_kw) + (stats,),
+                      "poses_only": sequence_parallel_odometry(None, list(range(7)), n_chunks=3,
+                                                               overlap=2, chunk_runner=poses_only,
+                                                               device="cpu")}
+    return res
+
+
+_SUITES = {"parallel": _parallel, "cli": _cli, "dslam": _dslam}
 
 
 if __name__ == "__main__":

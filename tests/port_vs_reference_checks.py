@@ -3,6 +3,7 @@ collected by pytest. Each prints one JSON line.
 
     python tests/port_vs_reference_checks.py ba [WIDTH HEIGHT]
     python tests/port_vs_reference_checks.py odom-resume
+    python tests/port_vs_reference_checks.py dslam [FRAMES WIDTH HEIGHT]
 
 ``ba``: both packages' ``Slam.optimize(bundle_adjust=True)`` over one
 64-frame TUM directory that the port's ``data/tum.py`` writes (640x480 by
@@ -15,18 +16,31 @@ directory with config 3, once through and as ``--max-frames 50`` then
 ``--resume``. The reference's resume raises a TypeError (its checkpoint
 loader calls ``_make_frame`` with one argument); it is run here with that
 call given ``intensity=None``, as the port's loader does.
+
+``dslam``: both packages' ``distributed_slam(bundle_adjust=True,
+detector="tpu")`` over one TUM directory that the port writes (32 frames at
+160x120 by default; config 4's ICP and pose graph, a keyframe at least every
+4th frame, config 5's BA): the port as its ``slam`` command runs it on a
+(1, 2) config mesh, two gloo ranks the command starts itself; the JAX
+package on a 2-device virtual mesh over the frames that command decodes,
+its eager ``shard_map`` stages jitted (the same functions). The largest
+trajectory difference and each package's ATE.
 """
 
 import contextlib
 import dataclasses
 import io
 import json
+import os
 import pathlib
 import sys
 import tempfile
 
 _REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(_REPO))
+
+# Two virtual CPU devices for the reference's mesh (the dslam check).
+os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=2"
 
 import jax  # noqa: E402
 
@@ -119,6 +133,60 @@ def check_odom_resume(root):
     return out
 
 
+def check_dslam(root, frames=32, size=(160, 120)):
+    from rgbd_pose_estimation_tpu.core import lie as jlie
+    from rgbd_pose_estimation_tpu.icp import dense as jdense
+    from rgbd_pose_estimation_tpu.models import distributed_slam as jds
+    from rgbd_pose_estimation_tpu.parallel import sharded as jsharded
+    from rgbd_pose_estimation_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from rgbd_pose_estimation_tpu_torch.cli.main import main
+    from rgbd_pose_estimation_tpu_torch.eval.traj_io import read_tum_trajectory
+
+    root = pathlib.Path(root)
+    cam = tum.write_synthetic_tum(root / "synth", n_frames=frames, size=size, motion_scale=0.008,
+                                  seed=61, device="cpu")
+    cfg = _slam_config(config)
+    yaml = root / "dslam.yaml"
+    yaml.write_text(
+        f"icp:\n  levels: {cfg.icp.levels}\n  iters_per_level: {list(cfg.icp.iters_per_level)}\n"
+        f"pose_graph:\n  iters: {cfg.pose_graph.iters}\n  damping: {cfg.pose_graph.damping}\n"
+        f"  odom_sigma: {cfg.pose_graph.odom_sigma}\n  loop_sigma: {cfg.pose_graph.loop_sigma}\n"
+        f"keyframe:\n  max_interval: {cfg.keyframe.max_interval}\n"
+        f"ba:\n  outer_iters: {cfg.ba.outer_iters}\n  cg_iters: {cfg.ba.cg_iters}\n"
+        f"  damping: {cfg.ba.damping}\n  huber_delta: {cfg.ba.huber_delta}\n"
+        "mesh:\n  hosts: 1\n  chips_per_host: 2\n"
+        f"frontend:\n  detector: tpu\n  max_features: {cfg.frontend.max_features}\n")
+    if config.load_yaml_config(yaml) != dataclasses.replace(cfg, mesh=config.MeshConfig(chips_per_host=2)):
+        raise AssertionError("the written config is not the check's")
+    out_path = root / "port.txt"
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = main(["slam", "--dataset", str(root / "synth"), "--config", str(yaml), "--intrinsics",
+                   "from_dataset", "--out", str(out_path), "--cpu"])
+    port_run = json.loads(printed.getvalue().strip().splitlines()[-1])
+    if rc != 0:
+        raise AssertionError(f"slam exited {rc}")
+    port = read_tum_trajectory(str(out_path))[1]
+
+    seq = tum.TumSequence(str(root / "synth"))
+    decoded = [seq.frame(i) for i in range(len(seq))]
+    _, gt = seq.groundtruth_aligned()
+    jcam = JCamera(cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height)
+    jmesh = jmake_mesh(jconfig.MeshConfig(hosts=1, chips_per_host=2))
+    jds.icp_verify_sharded = jax.jit(jsharded.icp_verify_sharded, static_argnums=(0, 1, 2))
+    jds.ring_similarity = jax.jit(jsharded.ring_similarity, static_argnums=0)
+    jds.make_icp_frame = jax.jit(jdense.make_icp_frame, static_argnums=(0, 2))
+    jds.se3_inverse = jax.jit(jlie.se3_inverse)
+    ref = np.asarray(jds.distributed_slam(jcam, [d for _, _, d in decoded], [g for _, g, _ in decoded],
+                                          jmesh, _slam_config(jconfig), n_chunks=2, detector="tpu"))
+    # The TUM file holds the port's poses at 6-7 digits.
+    return {"frames": frames, "size": list(size), "port_mesh": "2 gloo ranks (slam, config mesh 1 x 2)",
+            "reference_mesh": "2 virtual CPU devices",
+            "max_abs_diff_trajectory": float(np.abs(port - ref).max()),
+            "ate_port_m": ate_rmse(_centers(port), _centers(gt)),
+            "ate_port_printed_m": port_run.get("ate_rmse"),
+            "ate_reference_m": ate_rmse(_centers(ref), _centers(gt))}
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
     with tempfile.TemporaryDirectory() as tmp:
@@ -127,5 +195,8 @@ if __name__ == "__main__":
             print(json.dumps(check_ba(tmp, size)))
         elif sys.argv[1] == "odom-resume":
             print(json.dumps(check_odom_resume(tmp)))
+        elif sys.argv[1] == "dslam":
+            n, w, h = (int(x) for x in sys.argv[2:5]) if len(sys.argv) > 2 else (32, 160, 120)
+            print(json.dumps(check_dslam(tmp, n, (w, h))))
         else:
             raise SystemExit(__doc__)

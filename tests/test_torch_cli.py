@@ -7,10 +7,13 @@ against the JAX package's ``main``; ``pair`` and ``odom`` against the port's
 own ``FramePairEstimator`` and ``DenseOdometry`` on the same frames (those
 classes are held against the JAX package's in their own files); ``odom
 --resume`` and ``ba --fail-at-iter`` then ``--resume`` against one
-uninterrupted run. A mesh of devices inside one process and ``slam`` raise
-``NotImplementedError`` (``ba`` across processes is in
-``test_torch_cli_ranks.py``), and every command raises ``RuntimeError``
-where there is no CUDA device and ``--cpu`` is not given.
+uninterrupted run; ``slam`` against a direct ``distributed_slam`` call. A
+mesh of several devices makes ``ba`` and ``slam`` start their ranks
+(``parallel/spawn.py``; here the call that starts them is recorded, the
+ranks run in ``test_torch_cli_ranks.py``), a mesh larger than the devices
+raises ``ValueError`` before any rank starts, and every command raises
+``RuntimeError`` where there is no CUDA device and neither ``--cpu`` nor
+``--cpu-devices`` is given.
 """
 
 import _port_test_settings  # noqa: F401  (first: one torch thread a process)
@@ -32,11 +35,15 @@ from rgbd_pose_estimation_tpu_torch.data.icl_nuim import open_sequence
 from rgbd_pose_estimation_tpu_torch.data.prefetch import sequence_prefetcher
 from rgbd_pose_estimation_tpu_torch.data.tum import render_synthetic
 from rgbd_pose_estimation_tpu_torch.eval.ate import ate_rmse
-from rgbd_pose_estimation_tpu_torch.eval.traj_io import read_tum_trajectory
+from rgbd_pose_estimation_tpu_torch.eval.traj_io import read_tum_trajectory, write_tum_trajectory
 from rgbd_pose_estimation_tpu_torch.graph.pose_graph import optimize_trajectory
+from rgbd_pose_estimation_tpu_torch.models.distributed_slam import distributed_slam
 from rgbd_pose_estimation_tpu_torch.models.frame_pair import FramePairEstimator
 from rgbd_pose_estimation_tpu_torch.models.odometry import DenseOdometry
-from rgbd_pose_estimation_tpu_torch.utils.config import load_yaml_config
+from rgbd_pose_estimation_tpu_torch.parallel import spawn
+from rgbd_pose_estimation_tpu_torch.parallel.mesh import make_mesh
+from rgbd_pose_estimation_tpu_torch.utils.config import PipelineConfig, load_yaml_config
+from rgbd_pose_estimation_tpu_torch.utils.metrics import MetricsLogger
 
 _CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 C1, C2, C3, C5 = (str(_CONFIGS / name) for name in (
@@ -212,18 +219,104 @@ def test_ba_with_a_coordinator_and_one_process_is_the_one_process_ba(data, tmp_p
     assert np.array_equal(a, b)
 
 
+def test_slam_equals_a_direct_distributed_slam_call(data, tmp_path):
+    """``slam`` in one process (a mesh of one rank) against
+    ``distributed_slam`` on the same decoded frames, bit for bit; it writes
+    the trajectory, logs the decoding and the ATE, and leaves no group."""
+    out_path, metrics = str(tmp_path / "t.txt"), str(tmp_path / "m.jsonl")
+    n = 12
+    rc, out = _run(main, "slam", "--dataset", data["dir"], "--out", out_path, "--max-frames", str(n),
+                   "--intrinsics", "from_dataset", "--detector", "tpu", "--metrics", metrics, "--cpu")
+    got = json.loads(out)
+    assert rc == 0 and (got["frames"], got["mesh_devices"], got["chunks"]) == (n, 1, 2)
+    assert not torch.distributed.is_initialized()
+    seq = open_sequence(data["dir"])
+    frames = [seq.frame(i) for i in range(n)]
+    mesh = make_mesh(device="cpu")
+    try:
+        expect = distributed_slam(_dataset_cam(data["dir"]), [d for _, _, d in frames],
+                                  [g for _, g, _ in frames], mesh, PipelineConfig(),
+                                  detector="tpu", metrics=MetricsLogger())
+    finally:
+        torch.distributed.destroy_process_group()
+    # The same file as the direct call's trajectory written by the same writer.
+    write_tum_trajectory(str(tmp_path / "direct.txt"), seq.timestamps[:n], expect)
+    assert pathlib.Path(out_path).read_bytes() == (tmp_path / "direct.txt").read_bytes()
+    _, gt = seq.groundtruth_aligned()
+
+    def centers(T):
+        return -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+
+    assert got["ate_rmse"] == ate_rmse(centers(expect), centers(gt[:n])) < 0.01
+    logged = [json.loads(line) for line in open(metrics)]
+    io_stage = next(r for r in logged if r.get("stage") == "io")
+    assert io_stage["frames_decoded"] == io_stage["frames_total"] == n
+    assert [r["stage"] for r in logged if "stage" in r] == [
+        "odometry", "keyframes", "loops", "pose_graph", "ba_build", "ba", "io"]
+
+
+@pytest.fixture
+def started(monkeypatch):
+    """Records the ranks a command would start, and starts none."""
+    calls = []
+
+    def run_ranks(target, args, world, shape, device):
+        calls.append((target, args, world, tuple(shape), str(device)))
+        return [0] * world
+
+    monkeypatch.setattr(spawn, "run_ranks", run_ranks)
+    return calls
+
+
+@pytest.mark.parametrize("argv,world,shape", [
+    (["ba", "--dataset", "D", "--out", "t.txt", "--mesh-devices", "2"], 2, (1, 2)),
+    (["ba", "--dataset", "D", "--out", "t.txt", "--config", C5], 8, (2, 4)),  # its mesh: 2 x 4
+    (["slam", "--dataset", "D", "--out", "t.txt", "--mesh-devices", "4", "--cpu-devices", "4"], 4, (1, 4)),
+    (["slam", "--dataset", "D", "--out", "t.txt", "--config", C5, "--mesh-devices", "2"], 2, (1, 2)),
+], ids=["mesh-devices", "config5-mesh", "slam-cpu-devices", "slam-mesh-devices-over-config"])
+def test_a_mesh_of_several_devices_starts_one_rank_a_device(argv, world, shape, started):
+    """``ba`` and ``slam`` asking for a mesh of n > 1 devices in a process
+    that runs in no group start n ranks of the same command, gloo ranks on
+    the CPU, with the reference's single-process mesh shape: ``(1, n)`` for
+    ``--mesh-devices``, the config's otherwise. Rank 0's exit code is the
+    command's."""
+    assert main(argv + ["--cpu"]) == 0
+    assert started == [("rgbd_pose_estimation_tpu_torch.cli.main:main", (argv + ["--cpu"],), world,
+                        shape, "cpu")]
+    assert not torch.distributed.is_initialized()
+
+
+def test_cpu_devices_imply_the_cpu(data, monkeypatch):
+    """``--cpu-devices N`` runs a command on the CPU, as in the reference,
+    where there is no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out = _run(main, "eval", "--est", data["odom_full"], "--gt",
+                   str(pathlib.Path(data["dir"]) / "groundtruth.txt"), "--cpu-devices", "2")
+    assert rc == 0 and json.loads(out)["num_poses"] == FRAMES
+
+
 @pytest.mark.parametrize("argv", [
-    ["slam", "--dataset", "D", "--out", "t.txt"],
-    ["eval", "--est", "a", "--gt", "b", "--cpu-devices", "2"],
-    ["ba", "--dataset", "D", "--out", "t.txt", "--mesh-devices", "2"],
-    ["ba", "--dataset", "D", "--out", "t.txt", "--config", C5],  # its mesh: 2 x 4
-], ids=["slam", "cpu-devices", "mesh-devices", "config5-mesh"])
-def test_what_needs_the_distributed_layer_raises(argv):
-    """A mesh of several devices inside ONE process has no PyTorch
-    counterpart, and ``slam`` waits for ``models/distributed_slam.py``.
-    ``ba`` across processes is held in ``test_torch_cli_ranks.py``."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7b"):
-        main(argv + ["--cpu"])
+    ["slam", "--dataset", "D", "--out", "t.txt", "--cpu-devices", "1", "--mesh-devices", "2"],
+    ["ba", "--dataset", "D", "--out", "t.txt", "--cpu-devices", "4", "--config", C5],
+], ids=["slam", "ba-config5-mesh"])
+def test_a_mesh_beyond_the_cpu_devices_raises_before_any_rank(argv, started):
+    """``--cpu-devices N`` caps the mesh at N devices: a larger one raises
+    ``ValueError`` (as JAX fails on a mesh larger than its devices) before
+    any rank starts."""
+    with pytest.raises(ValueError, match="devices on [14] CPU devices"):
+        main(argv)
+    assert started == []
+
+
+def test_a_mesh_beyond_the_cards_raises_before_any_rank(started, monkeypatch):
+    """On CUDA devices each rank takes one card (NCCL puts no two ranks on
+    one): ``--mesh-devices 2`` with one card raises ``ValueError`` before
+    any rank starts, and nothing falls back to gloo or the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 CUDA devices, one a rank.*1 visible"):
+        main(["slam", "--dataset", "D", "--out", "t.txt", "--mesh-devices", "2"])
+    assert started == []
 
 
 @pytest.mark.parametrize("argv", [

@@ -30,7 +30,7 @@ import rgbd_pose_estimation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 60, names
+assert len(names) >= 63, names
 for new in ("core.poly", "solvers.p3p", "solvers.pnp", "solvers.normals",
             "ops.msac_variants", "ops.ceilings", "tools.roofline", "tools.msac_opt",
             "features.tpu_detect", "features.frontend", "models.frame_pair", "models.slam",
@@ -38,7 +38,8 @@ for new in ("core.poly", "solvers.p3p", "solvers.pnp", "solvers.normals",
             "ba.schur", "ba.build", "data.png", "data.native_loader", "data.tum",
             "data.icl_nuim", "data.prefetch", "utils.checkpoint", "utils.timing",
             "parallel.mesh", "cli.main", "models.sequence_parallel", "parallel.specs",
-            "parallel.sharded", "parallel.dryrun", "ba.cluster"):
+            "parallel.sharded", "parallel.dryrun", "ba.cluster", "models.distributed_slam",
+            "eval.scaling", "parallel.spawn"):
     assert pkg.__name__ + "." + new in names, new
 # "tools" is the JAX repository's harness directory: the port's own tools
 # live in its package and import nothing of it. cv2 is imported by host ORB
@@ -62,6 +63,30 @@ def test_imports_without_jax_or_triton():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# Modules of the port with no counterpart in the JAX package: the kernels'
+# build and bindings, the stdlib PNG codec, the conversions from the
+# reference's types, the measurement tools, the dry run (the reference's is
+# in __graft_entry__.py) and the ranks a command starts for itself.
+_PORT_ONLY = {
+    "data/png.py", "ops/_build.py", "ops/ceilings.py", "ops/msac_variants.py", "parallel/dryrun.py",
+    "parallel/spawn.py", "tools/__init__.py", "tools/collective_cost.py", "tools/k4_tracks.py",
+    "tools/msac_opt.py", "tools/roofline.py", "utils/convert.py",
+}
+
+
+def test_every_module_of_the_reference_has_its_counterpart():
+    """The port has a module of the same path for every module of the JAX
+    package, and no other but its own (``_PORT_ONLY``)."""
+
+    def modules(name):
+        root = _REPO / name
+        return {str(p.relative_to(root)) for p in root.rglob("*.py")}
+
+    reference, port = modules("rgbd_pose_estimation_tpu"), modules("rgbd_pose_estimation_tpu_torch")
+    assert reference - port == set()
+    assert port - reference == _PORT_ONLY
 
 
 _CONFIG_NAMES = [

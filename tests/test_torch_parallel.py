@@ -271,20 +271,20 @@ def test_dryrun_multichip_on_four_ranks(run):
 
 def test_one_process_meshes_raise_or_start_a_real_group():
     """In one process: a 1×1 mesh is a real gloo group of world size 1; a
-    mesh of several devices raises naming ROADMAP.md queue 1 item 7b; a
-    backend that cannot start (NCCL in a CPU build) raises, and no group is
-    left behind (no fallback to another backend)."""
+    mesh of several devices raises, pointing at the commands that start
+    their own ranks; a backend that cannot start (NCCL in a CPU build)
+    raises, and no group is left behind (no fallback to another backend)."""
     import torch.distributed as dist
 
     from rgbd_pose_estimation_tpu_torch.parallel import mesh as pm
     from rgbd_pose_estimation_tpu_torch.utils.config import MeshConfig
 
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7b"):
+    with pytest.raises(NotImplementedError, match="inside one process.*start their own, parallel/spawn.py"):
         pm.make_mesh(MeshConfig(hosts=1, chips_per_host=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7b"):
+    with pytest.raises(NotImplementedError, match="inside one process.*start their own, parallel/spawn.py"):
         pm.runtime_mesh(mesh_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7b"):
+    with pytest.raises(NotImplementedError, match="inside one process.*start their own, parallel/spawn.py"):
         pm.runtime_mesh(MeshConfig(hosts=2, chips_per_host=4), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="NCCL"):

@@ -5,8 +5,9 @@ The stitch is held against the reference with one injected chunk runner
 that hands both packages the same chunk poses (a known trajectory, each
 chunk in its own frame and perturbed); the default runner (dense ICP on
 80x60 frames) runs the chunks in threads and one after another, with the
-same result. ``ops/_build.py`` is driven with a stub library from 8 threads:
-one build, every launch counted.
+same result; a mesh of one rank gives the result of no mesh.
+``ops/_build.py`` is driven with a stub library from 8 threads: one build,
+every launch counted.
 """
 
 import _port_test_settings  # noqa: F401  (first: one torch thread a process)
@@ -95,9 +96,28 @@ def test_default_runner_in_threads_equals_one_after_another():
     assert np.isfinite(par).all() and np.abs(par[0] - np.eye(4)).max() < 1e-6
 
 
-def test_mesh_needs_the_distributed_layer():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6b"):
-        sp.sequence_parallel_odometry(None, [0, 1], mesh=object())
+@pytest.mark.parametrize("parallel", [False, True])
+def test_a_mesh_of_one_rank_equals_no_mesh_bit_for_bit(parallel):
+    """``mesh=`` a mesh of one rank (a gloo group of world size 1) tracks
+    every chunk in this process with no exchange: the trajectory, keyframes
+    and stats of ``mesh=None``, bit for bit; the stitch runs on the mesh's
+    device. Two ranks are held in ``test_torch_distributed_slam.py``."""
+    import torch.distributed as dist
+
+    from rgbd_pose_estimation_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(n_chunks=CHUNKS, overlap=OVERLAP, chunk_runner=_chunk_runner(), return_keyframes=True,
+              parallel=parallel)
+    stats, stats_mesh = {}, {}
+    out, kfs = sp.sequence_parallel_odometry(None, list(range(F)), stats=stats, device="cpu", **kw)
+    mesh = make_mesh(device="cpu")
+    try:
+        got, kfs_mesh = sp.sequence_parallel_odometry(None, list(range(F)), mesh=mesh, stats=stats_mesh,
+                                                      **kw)
+        assert mesh.comm == {}  # no collective on one rank
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(got, out) and kfs_mesh == kfs and stats_mesh == stats
 
 
 class _StubFunction:
