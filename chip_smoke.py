@@ -60,8 +60,17 @@ through the launch counters that each path went through its kernels:
 - ``sequence_parallel_odometry`` over the first 32 of those frames, four
   chunks in four host threads and one after another, stitched by the anchor
   pose graph (``sequence_parallel``);
+- the repository's remaining entry points: the ICP experiments
+  ``tools/reassoc_exp.py`` and ``tools/photometric_exp.py`` at full width
+  (the 10-frame 640x480 hard-mode sequence, config 3's stride; every
+  accuracy loop's launches counted exactly, each table's track times as
+  CUDA-graph slopes) and the readiness kit ``tools/verify_dataset.py`` on
+  phase ``cli``'s directory and a byteswapped copy of it (``tools``);
 - the scaling harness ``eval/scaling.py`` at its defaults on the one card:
   the step mode (K3's launches counted) and the slam mode (``scaling``);
+- ``entry.py``'s flagship step (the 3D-3D estimate at K = 1024 x N = 512):
+  one call with no wait for the stream, K1, K2 and K3 once each, then the
+  call captured in a CUDA graph and replayed (``entry``);
 - the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
   of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
   T6 against their plain versions, then the msac timing table at K = 4096
@@ -294,7 +303,7 @@ def quad_scores_f64(feat, pn):
     return chunked(lambda f: torch.clamp(f @ pb, 0.0, TAU * TAU).sum(1), fb, 8192)
 
 
-def check_quad(T, p, q):
+def check_quad(T, p, q, needs_nan_pose=True):
     """K2 against float64, rtol 1e-3: the tensor-core kernel, its plain
     version, and the CUDA-core design kept beside it. The 17 terms of an
     entry are of order |p|² ~ 10-50 and cancel to residuals near τ² = 2.5e-3,
@@ -303,8 +312,8 @@ def check_quad(T, p, q):
     version is no more right than a kernel, so all are held to the f64 value
     of the same rounded operands. Entries err by ~1e-6 absolute, up to ~1e-3
     of a small entry; the (K,) sums of N clipped entries much less. A NaN
-    pose (the problem has one) must score NaN, and only it; a rerun must give
-    the same bits."""
+    pose (the problem must have one when ``needs_nan_pose``) must score NaN,
+    and only it; a rerun must give the same bits."""
     feat, pn = rs._quad_features(T, p, q)
     out = rs._quad_scores(feat, pn, TAU)
     again = rs._quad_scores(feat, pn, TAU)
@@ -313,7 +322,7 @@ def check_quad(T, p, q):
     plain = rs._quad_scores_reference(feat, pn, TAU)
     torch.cuda.synchronize()
     nan_pose = torch.isnan(feat).any(dim=1)
-    if not bool(nan_pose.any()) or not torch.equal(torch.isnan(out), nan_pose):
+    if (needs_nan_pose and not bool(nan_pose.any())) or not torch.equal(torch.isnan(out), nan_pose):
         raise AssertionError("score_poses_3d3d_quad_fused: NaN does not sit at the NaN pose alone")
     if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
         raise AssertionError("score_poses_3d3d_quad_fused: two runs on the same input differ")
@@ -1206,9 +1215,11 @@ def normals_problem(seed, n, outlier_frac=0.7):
 
 def expect_launches(counts, expected, what):
     """``counts`` must show exactly ``expected`` (name → launches) and no
-    launch of any other kernel."""
-    want = {name: expected.get(name, 0) for name in counts}
-    if counts != want:
+    launch of any other kernel; a kernel missing from ``counts`` (a dict of
+    the launched kernels only) was launched 0 times."""
+    names = set(counts) | set(expected)
+    if any(counts.get(name, 0) != expected.get(name, 0) for name in names):
+        want = {name: expected.get(name, 0) for name in sorted(names)}
         raise AssertionError(f"{what}: kernel launches {counts}, expected {want}")
 
 
@@ -2990,6 +3001,210 @@ def phase_scaling():
 
 
 # ---------------------------------------------------------------------------
+# The repository's remaining entry points: entry.py and the tools
+# ---------------------------------------------------------------------------
+
+
+# The engine's contract against another implementation on the same minimal
+# sets (tests/test_torch_engine.py): the entry's pose against the plain path.
+ENTRY_PLAIN_TOL = 2e-3
+
+
+def phase_entry():
+    """entry.py's flagship step (the counterpart of __graft_entry__.entry():
+    estimate_pose_3d3d with RansacConfig(num_hypotheses=1024, threshold=0.05)
+    on 512 correspondences, 30% outliers): one call under
+    set_sync_debug_mode("error") launching K1, K2 and K3 once each, its ms by
+    CUDA events; then the call captured once in a CUDA graph (the sampler's
+    generator registered, as tools/roofline.py::timeit_chain captures the
+    estimate), replayed, each replay's pose through the same gate. Returns
+    the eager call's launches.
+
+    K1, K2 and K3 are also held against their plain versions at the step's
+    own shapes: its p and q (N = 512), the 1024 minimal sets a fresh
+    sampler draws (the very sets of the eager call) and the hypotheses
+    solved from them, and the 16 finalists the fast pass picks. And the
+    eager pose against the whole plain path (CPU copies of the same minimal
+    sets through ``_estimate_from_samples``), within the engine's 2e-3."""
+    from rgbd_pose_estimation_tpu_torch.entry import CONFIG, entry, example_problem
+
+    _, _, T_gt, inliers = example_problem()
+
+    def err(pose):
+        return float((pose - T_gt).abs().max())
+
+    fn, args = entry()
+    fn(*args)  # warm-up: the PROSAC windows, every PyTorch kernel of the path
+
+    _, (gen, p, q) = entry()
+    k = CONFIG.num_hypotheses
+    idx = sample_minimal_sets(gen, p.shape[0], k, CONFIG.sample_size, CONFIG.prosac, device=DEV)
+    if CONFIG.threshold != TAU or p.shape[0] % 128:
+        raise AssertionError(f"entry: threshold {CONFIG.threshold}, N = {p.shape[0]} unpadded")
+    T = horn_from_moments(minimal_moments(idx, p, q), iters=4)
+    feat, pn = rs._quad_features(T, p, q)
+    top = max(16, k // 1024)
+    fast = torch.nan_to_num(rs._quad_scores(feat, pn, TAU), nan=float("inf"))
+    finalists = T[fast.reshape(top, k // top).argmin(1) + torch.arange(top, device=DEV) * (k // top)]
+    kernel_checks = {
+        "shape": f"K={k} N={p.shape[0]}, {top} finalists",
+        "minimal_moments": check_moments(idx, p, q),
+        "score_poses_3d3d_quad_fused": check_quad(T, p, q, needs_nan_pose=False),
+        "score_poses_3d3d": check_exact(finalists.contiguous(), p, q),
+        "best_pose_3d3d winner, tensor-core vs CUDA-core K2": check_quad_winner(T, p, q),
+    }
+    plain = _estimate_from_samples(idx.cpu(), p.cpu(), q.cpu(), CONFIG)
+
+    fn, args = entry()
+    (pose, num_inliers), counts = counted_launches(lambda: without_sync(lambda: fn(*args)))
+    expect_launches(counts, {name: 1 for name in ESTIMATE_KERNELS}, "entry")
+    eager_err = err(pose)
+    if not eager_err < POSE_TOL or pose.shape != (4, 4) or num_inliers.shape != ():
+        raise AssertionError(f"entry: pose error {eager_err}, shapes {pose.shape} {num_inliers.shape}")
+    plain_diff = float((pose.cpu() - plain.pose).abs().max())
+    if not plain_diff <= ENTRY_PLAIN_TOL:
+        raise AssertionError(f"entry: pose {plain_diff} from the plain path's (tolerance {ENTRY_PLAIN_TOL})")
+    kernel_checks["pose vs the plain path"] = plain_diff
+    kernel_checks["num_inliers, plain path"] = float(plain.num_inliers)
+    ms = time_ms(lambda: fn(*args), reps=10, inner=3)
+
+    fn, (gen, p, q) = entry()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(gen, p, q)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+
+    def capture():
+        with torch.cuda.graph(graph):
+            return fn(gen, p, q)
+
+    (g_pose, g_num), captured = counted_launches(capture)
+    expect_launches(captured, {name: 1 for name in ESTIMATE_KERNELS}, "entry, captured")
+    graph_errs, graph_inliers, graph_ms = [], [], []
+    for _ in range(10):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        graph_ms.append(start.elapsed_time(stop))
+        graph_errs.append(err(g_pose))
+        graph_inliers.append(float(g_num))
+    if not max(graph_errs) < POSE_TOL:
+        raise AssertionError(f"entry, graph replays: pose errors {graph_errs}")
+    emit("entry", card=SMI, config=vars(CONFIG), n=p.shape[0], true_inliers=int(inliers.sum()),
+         pose_max_err=eager_err, num_inliers=float(num_inliers), ms_per_call=ms,
+         launches=counts, kernel_checks=kernel_checks, graph={"launches_captured": captured, "replays": len(graph_ms),
+                                 "ms_per_replay": statistics.median(graph_ms),
+                                 "ms_samples": graph_ms, "pose_max_err": max(graph_errs),
+                                 "num_inliers": graph_inliers})
+    return counts
+
+
+# The ICP experiments at full width: 10 frames at 640x480, config 3's stride.
+TOOLS_FRAMES, TOOLS_SIZE = 10, (640, 480)
+TOOLS_ATE_TOL_M = 0.01  # at weight 0, every reassoc_every
+
+
+def byteswapped_copy(src, dst):
+    """A copy of a TUM directory whose depth PNGs hold byteswapped values."""
+    import shutil
+
+    from rgbd_pose_estimation_tpu_torch.data import native_loader, png
+
+    shutil.copytree(src, dst)
+    for path in sorted((pathlib.Path(dst) / "depth").iterdir()):
+        png.write_png(path, native_loader.decode_depth16(str(path)).byteswap())
+
+
+def run_verify_dataset(root):
+    import contextlib
+    import io
+
+    from rgbd_pose_estimation_tpu_torch.tools import verify_dataset
+
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = verify_dataset.main(str(root))
+    return {"exit": rc, "checks": [list(r) for r in verify_dataset._RESULTS],
+            "printed_commands": [line for line in printed.getvalue().splitlines()
+                                 if line.startswith(verify_dataset.CLI)]}
+
+
+def phase_tools(cli_dir, scratch):
+    """The two ICP experiments at full width (the reference's settings: the
+    10-frame 640x480 hard-mode sequence, config 3's stride, the default 22
+    Gauss-Newton steps a track), their tables printed; the launches of their
+    accuracy loops counted from zero (every step of reassoc_exp and of the
+    photometric weight 0 one fused step, every step at 0.1 and 0.5 one K4);
+    each table's track times, CUDA-graph slopes (reassoc_exp.ROUNDS a
+    setting, in turns; the tables and the record give the median and every
+    sample).
+    Then verify_dataset on phase cli's directory (exit 0) and on a
+    byteswapped copy of it (exit 1). Returns the launches of the two
+    accuracy loops."""
+    from rgbd_pose_estimation_tpu_torch.tools import photometric_exp, reassoc_exp
+
+    t_phase = time.perf_counter()
+    W, H = TOOLS_SIZE
+    cam = reassoc_exp.camera(H, W)
+    tracks = TOOLS_FRAMES - 1
+    steps = sum(IcpConfig().iters_per_level)
+    out = {"card": SMI, "frames": TOOLS_FRAMES, "size": [W, H], "steps_per_track": steps}
+
+    poses, depths, _ = reassoc_exp.hard_sequence(cam, reassoc_exp.SEED, TOOLS_FRAMES)
+    cfgs = reassoc_exp.configs()
+    rows, reassoc_counts = counted_launches(lambda: reassoc_exp.ate_rows(cam, poses, depths, cfgs))
+    expect_launches(reassoc_counts, {"icp_assoc_jtj_jtr": steps * tracks * len(cfgs)}, "reassoc_exp")
+    reassoc_samples = reassoc_exp.track_times(cam, cfgs, depths)
+    print(f"reassoc_exp: hard sequence {TOOLS_FRAMES} frames {W}x{H}, "
+          f"stride={cfgs[0].source_stride}; {SMI}", flush=True)
+    print(reassoc_exp.table(rows, reassoc_samples), flush=True)
+    ates = [row["ate_m"] for row in rows]
+    if not all(np.isfinite(a) and a < TOOLS_ATE_TOL_M for a in ates):
+        raise AssertionError(f"reassoc_exp: ATE {ates} (gate {TOOLS_ATE_TOL_M} m)")
+    out["reassoc_exp"] = {"reassoc_every": [c.reassoc_every for c in cfgs], "ate_m": ates,
+                          "track_ms_graph_median": [statistics.median(t) for t in reassoc_samples],
+                          "track_ms_graph_samples": reassoc_samples,
+                          "launches": reassoc_counts}
+
+    pcfgs = photometric_exp.configs()
+    (p_ates, (d0, i0)), photo_counts = counted_launches(
+        lambda: photometric_exp.ate_table(cam, TOOLS_FRAMES, pcfgs))
+    n_seeds = len(photometric_exp.SEEDS)
+    expect_launches(photo_counts, {"icp_assoc_jtj_jtr": steps * tracks * n_seeds,
+                                   "icp_jtj_jtr": steps * tracks * n_seeds * 2}, "photometric_exp")
+    photo_samples = reassoc_exp.track_times(cam, pcfgs, d0, i0)
+    print(f"photometric_exp: hard sequence {TOOLS_FRAMES} frames {W}x{H}, "
+          f"stride={pcfgs[0].source_stride}, reassoc_every={photometric_exp.REASSOC}, "
+          f"seeds={list(photometric_exp.SEEDS)}; {SMI}", flush=True)
+    print(photometric_exp.table(pcfgs, p_ates, photo_samples), flush=True)
+    if not all(np.isfinite(a) for per_seed in p_ates for a in per_seed):
+        raise AssertionError(f"photometric_exp: ATE {p_ates}")
+    # Weight 0 on seed 5 is reassoc_exp's k = 2 run again: the same bits.
+    if p_ates[0][0] != rows[1]["ate_m"]:
+        raise AssertionError(f"photometric_exp weight 0 {p_ates[0][0]} != reassoc_exp k = 2 {rows[1]['ate_m']}")
+    out["photometric_exp"] = {"weights": [c.photometric_weight for c in pcfgs],
+                              "seeds": list(photometric_exp.SEEDS), "ate_m": p_ates,
+                              "track_ms_graph_median": [statistics.median(t) for t in photo_samples],
+                              "track_ms_graph_samples": photo_samples,
+                              "launches": photo_counts}
+
+    swapped = scratch / "byteswapped"
+    byteswapped_copy(cli_dir, swapped)
+    checked = {"synth": run_verify_dataset(cli_dir), "byteswapped": run_verify_dataset(swapped)}
+    if checked["synth"]["exit"] != 0 or checked["byteswapped"]["exit"] != 1:
+        raise AssertionError(f"verify_dataset: {checked}")
+    out["verify_dataset"] = checked
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("tools", **out)
+    return reassoc_counts, photo_counts
+
+
+# ---------------------------------------------------------------------------
 # The measurement harness: tools/msac_opt.py and tools/roofline.py, T1-T6
 # ---------------------------------------------------------------------------
 
@@ -3401,9 +3616,11 @@ def main():
     try:
         cli_dir, slam_command_launches = phase_cli(cli_root)
         phase_sequence_parallel(cli_dir)
+        reassoc_launches, photometric_launches = phase_tools(cli_dir, cli_root)
     finally:
         shutil.rmtree(cli_root, ignore_errors=True)
     scaling_k3 = phase_scaling()
+    entry_launches = phase_entry()
 
     # Launches on each kernel's own main path, each counted from zero: the
     # 3D-3D estimates for K1-K3, the 2D-3D estimates for K5, the synchronous
@@ -3422,6 +3639,12 @@ def main():
             rec["launches_slam_command"] = slam_command_launches
         if rec["name"] == "score_poses_3d3d":  # eval/scaling.py's step mode
             rec["launches_scaling_step"] = scaling_k3
+        if rec["name"] in entry_launches:  # K1-K3: one call of entry.py's step
+            rec["launches_entry"] = entry_launches[rec["name"]]
+        if rec["name"] in reassoc_launches:  # the ICP experiments' accuracy loops
+            rec["launches_reassoc_exp"] = reassoc_launches[rec["name"]]
+        if rec["name"] in photometric_launches:
+            rec["launches_photometric_exp"] = photometric_launches[rec["name"]]
     # T1-T6: launches of the harness phase, counted from zero there.
     harness, t1_device_ms, fma, op_mix = phase_msac_opt()
     records += harness

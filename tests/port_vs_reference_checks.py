@@ -4,6 +4,7 @@ collected by pytest. Each prints one JSON line.
     python tests/port_vs_reference_checks.py ba [WIDTH HEIGHT]
     python tests/port_vs_reference_checks.py odom-resume
     python tests/port_vs_reference_checks.py dslam [FRAMES WIDTH HEIGHT]
+    python tests/port_vs_reference_checks.py tools [WIDTH HEIGHT]
 
 ``ba``: both packages' ``Slam.optimize(bundle_adjust=True)`` over one
 64-frame TUM directory that the port's ``data/tum.py`` writes (640x480 by
@@ -25,6 +26,17 @@ detector="tpu")`` over one TUM directory that the port writes (32 frames at
 package on a 2-device virtual mesh over the frames that command decodes,
 its eager ``shard_map`` stages jitted (the same functions). The largest
 trajectory difference and each package's ATE.
+
+``tools``: the full tables of the two ICP experiments
+(``tools/reassoc_exp.py``: ``reassoc_every`` 1, 2, 3 on seed 5;
+``tools/photometric_exp.py``: weights 0, 0.1, 0.5 on seeds 5, 6, 7; 10
+frames, config 3's stride, 22 steps a track) at 160x120 by default, with
+the camera of the experiments (fx = 525 at 640x480) scaled to the frames.
+The hard-mode sequences are the JAX package's, from its draws of each seed:
+the reference's loop (jitted ``make_icp_frame``, ``icp_track``) and the
+port's (``ate_rows``) run on the reference's frames, and the port's loop
+also on its own render of the same draws. Per setting: the largest
+difference of the camera centres and each ATE.
 """
 
 import contextlib
@@ -187,6 +199,81 @@ def check_dslam(root, frames=32, size=(160, 120)):
             "ate_reference_m": ate_rmse(_centers(ref), _centers(gt))}
 
 
+def _reference_hard_sequence(jcam, seed, frames):
+    """The JAX package's hard-mode sequence of ``key(seed)``, and its draws in
+    the port's form (the pattern of tests/test_torch_synthetic.py)."""
+    from rgbd_pose_estimation_tpu.data import synthetic as jsyn
+
+    key = jax.random.key(seed)
+    render = jax.jit(jsyn.synthetic_sequence_hard, static_argnums=(0, 2))
+    ref = [np.asarray(a) for a in render(jcam, key, frames)]
+    k_traj, k_deg = jax.random.split(key)
+    deltas = np.asarray(jax.random.normal(k_traj, (frames, 6)))
+    noise, seeds = [], []
+    for k in jax.random.split(k_deg, frames):
+        k1, k2 = jax.random.split(k)
+        noise.append(np.asarray(jax.random.normal(k1, (jcam.height, jcam.width))))
+        seeds.append(int(jax.random.randint(k2, (), 0, 1 << 30)))
+    draws = {"deltas": torch.from_numpy(deltas), "noise": torch.from_numpy(np.stack(noise)),
+             "dropout_seeds": torch.tensor(seeds, dtype=torch.int32)}
+    return ref, draws
+
+
+def check_tools(size=(160, 120), frames=10):
+    import jax.numpy as jnp
+
+    from rgbd_pose_estimation_tpu.eval.ate import ate_rmse as jax_ate_rmse
+    from rgbd_pose_estimation_tpu.icp import dense as jdense
+    from rgbd_pose_estimation_tpu_torch.core.camera import CameraIntrinsics
+    from rgbd_pose_estimation_tpu_torch.data.synthetic import synthetic_sequence_hard
+    from rgbd_pose_estimation_tpu_torch.tools import photometric_exp, reassoc_exp
+
+    w, h = size
+    f = 525.0 * w / 640
+    cam = CameraIntrinsics(f, f, w / 2 - 0.5, h / 2 - 0.5, w, h)
+    jcam = JCamera(cam.fx, cam.fy, cam.cx, cam.cy, w, h)
+    make_frame = jax.jit(jdense.make_icp_frame, static_argnums=(0, 2))
+
+    def reference_centres(cfg, depths, intensities):
+        photo = cfg.photometric_weight > 0
+        fr = [make_frame(jcam, jnp.asarray(depths[i]), cfg, jnp.asarray(intensities[i]) if photo else None)
+              for i in range(frames)]
+        T_acc = [np.eye(4)]
+        for i in range(1, frames):
+            T, _ = jdense.icp_track(jcam, cfg, jnp.eye(4), fr[i], fr[i - 1])
+            T_acc.append(T_acc[-1] @ np.asarray(T))
+        return np.stack(T_acc)[:, :3, 3]
+
+    def compare(cfgs, seed):
+        (poses, depths, intens, _), draws = _reference_hard_sequence(jcam, seed, frames)
+        own = synthetic_sequence_hard(cam, None, frames, device="cpu", **draws)
+        gt = reassoc_exp.true_centres(torch.from_numpy(poses))
+        port = reassoc_exp.ate_rows(cam, torch.from_numpy(poses), torch.from_numpy(depths), cfgs,
+                                    torch.from_numpy(intens))
+        port_own = reassoc_exp.ate_rows(cam, own[0], own[1], cfgs, own[2])
+        rows = []
+        for cfg, row, row_own in zip(cfgs, port, port_own):
+            ref = reference_centres(config_from_jax(cfg), depths, intens)
+            rows.append({"seed": seed, "reassoc_every": cfg.reassoc_every,
+                         "photometric_weight": cfg.photometric_weight,
+                         "max_centre_diff_m": float(np.abs(row["centres"] - ref).max()),
+                         "ate_port_m": row["ate_m"], "ate_reference_m": float(jax_ate_rmse(ref, gt)),
+                         "ate_port_own_render_m": row_own["ate_m"]})
+        return rows
+
+    def config_from_jax(cfg):
+        return jconfig.IcpConfig(**dataclasses.asdict(cfg))
+
+    out = {"size": list(size), "frames": frames, "fx": f}
+    out["reassoc_exp"] = compare(reassoc_exp.configs(), reassoc_exp.SEED)
+    out["photometric_exp"] = [r for seed in photometric_exp.SEEDS
+                              for r in compare(photometric_exp.configs(), seed)]
+    every = out["reassoc_exp"] + out["photometric_exp"]
+    out["max_centre_diff_m"] = max(r["max_centre_diff_m"] for r in every)
+    out["max_ate_diff_m"] = max(abs(r["ate_port_m"] - r["ate_reference_m"]) for r in every)
+    return out
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
     with tempfile.TemporaryDirectory() as tmp:
@@ -195,6 +282,9 @@ if __name__ == "__main__":
             print(json.dumps(check_ba(tmp, size)))
         elif sys.argv[1] == "odom-resume":
             print(json.dumps(check_odom_resume(tmp)))
+        elif sys.argv[1] == "tools":
+            size = tuple(int(x) for x in sys.argv[2:4]) or (160, 120)
+            print(json.dumps(check_tools(size)))
         elif sys.argv[1] == "dslam":
             n, w, h = (int(x) for x in sys.argv[2:5]) if len(sys.argv) > 2 else (32, 160, 120)
             print(json.dumps(check_dslam(tmp, n, (w, h))))

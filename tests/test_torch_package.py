@@ -30,7 +30,7 @@ import rgbd_pose_estimation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 63, names
+assert len(names) >= 67, names
 for new in ("core.poly", "solvers.p3p", "solvers.pnp", "solvers.normals",
             "ops.msac_variants", "ops.ceilings", "tools.roofline", "tools.msac_opt",
             "features.tpu_detect", "features.frontend", "models.frame_pair", "models.slam",
@@ -39,7 +39,8 @@ for new in ("core.poly", "solvers.p3p", "solvers.pnp", "solvers.normals",
             "data.icl_nuim", "data.prefetch", "utils.checkpoint", "utils.timing",
             "parallel.mesh", "cli.main", "models.sequence_parallel", "parallel.specs",
             "parallel.sharded", "parallel.dryrun", "ba.cluster", "models.distributed_slam",
-            "eval.scaling", "parallel.spawn"):
+            "eval.scaling", "parallel.spawn", "entry", "tools.reassoc_exp",
+            "tools.photometric_exp", "tools.verify_dataset"):
     assert pkg.__name__ + "." + new in names, new
 # "tools" is the JAX repository's harness directory: the port's own tools
 # live in its package and import nothing of it. cv2 is imported by host ORB
@@ -65,28 +66,55 @@ def test_imports_without_jax_or_triton():
     assert out.stdout.startswith("ok")
 
 
-# Modules of the port with no counterpart in the JAX package: the kernels'
-# build and bindings, the stdlib PNG codec, the conversions from the
-# reference's types, the measurement tools, the dry run (the reference's is
-# in __graft_entry__.py) and the ranks a command starts for itself.
+# Modules of the port with no counterpart in the JAX repository: the
+# kernels' build and bindings, the stdlib PNG codec, the conversions from the
+# reference's types, the port's own measurement tools, the dry run (the
+# reference's is in __graft_entry__.py, whose counterpart entry.py re-exports
+# it) and the ranks a command starts for itself.
 _PORT_ONLY = {
     "data/png.py", "ops/_build.py", "ops/ceilings.py", "ops/msac_variants.py", "parallel/dryrun.py",
     "parallel/spawn.py", "tools/__init__.py", "tools/collective_cost.py", "tools/k4_tracks.py",
-    "tools/msac_opt.py", "tools/roofline.py", "utils/convert.py",
+    "utils/convert.py",
 }
+# The JAX repository's files outside its package, each with its counterpart
+# in the port: __graft_entry__.py (the flagship step and the multi-device dry
+# run) and every root tools/*.py.
+_ROOT_COUNTERPARTS = {"__graft_entry__.py": "entry.py"} | {
+    f"tools/{p.name}": f"tools/{p.name}" for p in (_REPO / "tools").glob("*.py")
+}
+# Root Python files with no counterpart: the benchmark's one-line JSON waits
+# for the benchmark (with BENCHMARK.json); chip_smoke.py is the port's own,
+# conftest.py the test suite's.
+_NOT_PORTED = {"bench.py"}
+_NOT_THE_REFERENCE = {"chip_smoke.py", "conftest.py"}
+
+
+def _modules(name):
+    root = _REPO / name
+    return {str(p.relative_to(root)) for p in root.rglob("*.py")}
 
 
 def test_every_module_of_the_reference_has_its_counterpart():
     """The port has a module of the same path for every module of the JAX
-    package, and no other but its own (``_PORT_ONLY``)."""
-
-    def modules(name):
-        root = _REPO / name
-        return {str(p.relative_to(root)) for p in root.rglob("*.py")}
-
-    reference, port = modules("rgbd_pose_estimation_tpu"), modules("rgbd_pose_estimation_tpu_torch")
+    package, one for every file of the JAX repository outside its package
+    (``_ROOT_COUNTERPARTS``), and no other but its own (``_PORT_ONLY``)."""
+    reference, port = _modules("rgbd_pose_estimation_tpu"), _modules("rgbd_pose_estimation_tpu_torch")
+    outside = set(_ROOT_COUNTERPARTS.values())
     assert reference - port == set()
-    assert port - reference == _PORT_ONLY
+    assert outside - port == set()
+    assert port - reference - outside == _PORT_ONLY
+
+
+def test_nothing_of_the_jax_repository_is_left_to_port_but_the_benchmark():
+    """Every root Python file of the JAX repository and every root
+    ``tools/*.py`` is mapped to a counterpart; ``bench.py`` is the one
+    exception."""
+    root = {p.name for p in _REPO.glob("*.py")} - _NOT_THE_REFERENCE
+    assert root - set(_ROOT_COUNTERPARTS) == _NOT_PORTED == {"bench.py"}
+    assert {k for k in _ROOT_COUNTERPARTS if k.startswith("tools/")} == {
+        "tools/msac_opt.py", "tools/photometric_exp.py", "tools/reassoc_exp.py",
+        "tools/roofline.py", "tools/verify_dataset.py",
+    }
 
 
 _CONFIG_NAMES = [
