@@ -69,8 +69,9 @@ through the launch counters that each path went through its kernels:
 - the scaling harness ``eval/scaling.py`` at its defaults on the one card:
   the step mode (K3's launches counted) and the slam mode (``scaling``);
 - ``entry.py``'s flagship step (the 3D-3D estimate at K = 1024 x N = 512):
-  one call with no wait for the stream, K1, K2 and K3 once each, then the
-  call captured in a CUDA graph and replayed (``entry``);
+  one call with no wait for the stream, K1, K2, K3 and the two Horn kernels
+  once each, then the call captured in a CUDA graph and replayed
+  (``entry``);
 - the measurement harness, ``tools/msac_opt.py`` and ``tools/roofline.py``
   of the port: the MSAC variants T1, T2, T3, T5 and the ceiling probes T4,
   T6 against their plain versions, then the msac timing table at K = 4096
@@ -141,6 +142,8 @@ from rgbd_pose_estimation_tpu_torch.ransac.engine import (
     _estimate_from_samples,
     _minimal_rays,
     _pack_root_poses,
+    _refit_3d3d,
+    _refit_3d3d_reference,
     estimate_pose_2d3d,
     estimate_pose_2d3d_adaptive,
     estimate_pose_3d3d,
@@ -152,7 +155,7 @@ from rgbd_pose_estimation_tpu_torch.ransac.engine import (
 from rgbd_pose_estimation_tpu_torch.ransac.prosac import sample_minimal_sets
 from rgbd_pose_estimation_tpu_torch.solvers.absolute_orientation import (
     horn_from_moments,
-    horn_quaternion,
+    horn_from_moments_reference,
 )
 from rgbd_pose_estimation_tpu_torch.solvers.p3p import p3p
 from rgbd_pose_estimation_tpu_torch.solvers.pnp import pnp_refine
@@ -284,6 +287,7 @@ def check_moments(idx, p, q):
 # and, above them, the chunked one (m = 11: a chunk of 8 and one of 3).
 MOMENTS_M = (1, 2, 3, 4, 5, 8, 11)
 K1_THREADS = 128  # threads a block of moments.cu
+HORN_THREADS = 128  # threads a block of horn.cu's hypotheses kernel
 
 
 def check_moments_by_m(k=1000, n=200):
@@ -769,6 +773,129 @@ def hypotheses(seed, k, n):
     return idx, pp, qq, T
 
 
+# The Horn kernels against their plain versions on the card (the reasons are
+# tests/test_torch_horn_cuda.py's): the hypotheses bit for bit on every set;
+# the refit's pose to 1e-5 (its block sums run in another order), its inlier
+# masks and counts equal.
+HORN_TOL = 1e-5
+REFIT_ITERS = 12  # horn.cu's refit runs horn_quaternion's default
+
+
+def horn_ops(iters):
+    """f32 operations of one Horn solve from moments, counted from horn.cuh
+    and horn.cu (a math function, sqrt, rsqrt, atan2, cos, sin, as one): the
+    moments' centring 35, the matrix and its scaling 51, three squarings
+    309, the start vectors 26, each power step 98, Rayleigh-Ritz 99, the
+    pose 49."""
+    return 569 + 98 * iters
+
+
+def refit_ops(n, rounds):
+    """f32 operations of the refit: a round's two residual passes (21 a
+    row each), its weighted sums (7 a row) and covariance (27 a row), and
+    one Horn solve; then the final residuals and count (22 a row)."""
+    return rounds * (76 * n + horn_ops(REFIT_ITERS)) + 22 * n
+
+
+def bit_equal_share(out, ref):
+    return float((out.view(torch.int32) == ref.view(torch.int32)).float().mean())
+
+
+def check_hypotheses_bits(mom, iters, what):
+    """horn_hypotheses_kernel against horn_from_moments_reference, bit for
+    bit. Returns the kernel's poses."""
+    out = horn_from_moments(mom, iters)
+    ref = horn_from_moments_reference(mom, iters)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"horn_hypotheses {what}: {bit_equal_share(out, ref):.4f} of the "
+                             f"entries are the plain version's bits, not all")
+    return out
+
+
+def check_horn_hypotheses():
+    """horn_hypotheses_kernel against horn_from_moments_reference, bit for
+    bit: the bench problem's sets at K = 32768 and a ragged 1000, iters 4 and
+    12; near-collinear sets; NaN moments; random sets ~1e4 from the origin
+    (the pad sentinels' scale) and sets of the pad sentinels themselves."""
+    out = {}
+    g = generator(31)
+    p, q, T_gt, _ = synthetic_correspondences(g, n=N, outlier_frac=0.4, noise=0.003)
+    for k in (1000, K):
+        mom = minimal_moments(sample_minimal_sets(g, N, k, M), p, q)
+        for iters in (4, 12):
+            check_hypotheses_bits(mom, iters, f"K={k} iters={iters}")
+            out[f"K={k} iters={iters}"] = "bit-equal"
+    # Near-collinear sets: off their line by 0.0035 of its length.
+    base = torch.randn(4096, 1, 3, generator=g, device=DEV)
+    direction = torch.randn(4096, 1, 3, generator=g, device=DEV)
+    steps = torch.tensor([-1.0, 0.1, 1.0], device=DEV).reshape(1, 3, 1)
+    P = base + steps * direction + 0.0035 * torch.randn(4096, 3, 3, generator=g, device=DEV)
+    Q = P @ T_gt[:3, :3].T + T_gt[:3, 3]
+    ix = torch.arange(3 * 4096, dtype=torch.int32, device=DEV).reshape(4096, 3)
+    mom = minimal_moments(ix, P.reshape(-1, 3).contiguous(), Q.reshape(-1, 3).contiguous())
+    T = check_hypotheses_bits(mom, 4, "near-collinear")
+    out["near-collinear, 4096 sets"] = {
+        "median_err_vs_truth": float((T[:, :3, :3] - T_gt[:3, :3]).abs().amax(dim=(1, 2)).median())}
+    # NaN moments: a NaN pose in the same places.
+    mom = minimal_moments(sample_minimal_sets(g, N, 1000, M), p, q)
+    mom[:, 5] = float("nan")
+    mom[7, 9] = float("nan")
+    mom[15, 11] = float("nan")
+    T = check_hypotheses_bits(mom, 4, "NaN moments")
+    out["NaN moments"] = {"nan_poses": int(torch.isnan(T).any(2).any(1).sum())}
+    # ~1e4 from the origin: random sets, and sets of the pad sentinels.
+    P = 1e4 * torch.randn(1000, 3, 3, generator=g, device=DEV)
+    Q = 1e4 * torch.randn(1000, 3, 3, generator=g, device=DEV)
+    ix = torch.arange(3000, dtype=torch.int32, device=DEV).reshape(1000, 3)
+    check_hypotheses_bits(minimal_moments(ix, P.reshape(-1, 3).contiguous(),
+                                          Q.reshape(-1, 3).contiguous()), 4, "1e4 from the origin")
+    pp, qq = pad_correspondences_3d3d(p[:100], q[:100], N)
+    ixs = (100 + torch.rand((1000, N - 100), generator=g, device=DEV).argsort(dim=1)[:, :3])
+    T = check_hypotheses_bits(minimal_moments(ixs.to(torch.int32).contiguous(), pp, qq), 4,
+                              "pad sentinels")
+    if not bool(torch.isfinite(T).all()):
+        raise AssertionError("horn_hypotheses on pad-sentinel sets: not finite")
+    out["1e4 from the origin, pad sentinels"] = "bit-equal, finite"
+    return out
+
+
+def check_horn_refit():
+    """horn_refit_3d3d_kernel against _refit_3d3d_reference: N = 5, 2048 and
+    3000 at rounds 0, 1 and 2 from a pose 0.01 off the truth; at N = 2048
+    also fewer than 3 inliers (τ = 1e-5: the pose is kept) and a NaN start
+    pose (a NaN pose, no inliers, not valid). Returns the cases and the
+    largest pose error."""
+    out, worst = {}, 0.0
+    zero = torch.zeros((), device=DEV)
+    for n in (5, N, 3000):
+        p, q, T, _ = synthetic_correspondences(generator(40 + n), n=n, outlier_frac=0.4, noise=0.003)
+        T0 = T.clone()
+        T0[:3, 3] += 0.01
+        cases = {f"rounds={r}": (T0, TAU, r) for r in (0, 1, 2)}
+        if n == N:
+            cases["fewer than 3 inliers"] = (T0, 1e-5, 2)
+            cases["NaN start pose"] = (T0 * float("nan"), TAU, 2)
+        for name, (start, tau, rounds) in cases.items():
+            cfg = RansacConfig(threshold=tau, refit_rounds=rounds)
+            a = _refit_3d3d(start, zero, p, q, cfg, 1)
+            b = _refit_3d3d_reference(start, zero, p, q, cfg, 1)
+            err = max_abs_err(a.pose, b.pose) if not bool(torch.isnan(b.pose).all()) else 0.0
+            kept = rounds == 0 or tau < 1e-3
+            if (not err <= HORN_TOL or not torch.equal(a.inlier_mask, b.inlier_mask)
+                    or float(a.num_inliers) != float(b.num_inliers) or bool(a.valid) != bool(b.valid)
+                    or (kept and not torch.equal(a.pose, start))
+                    or (name == "NaN start pose" and (float(a.num_inliers) != 0 or bool(a.valid)
+                                                     or not bool(torch.isnan(a.pose).all())))):
+                raise AssertionError(f"horn_refit_3d3d N={n} {name}: pose err {err}, inliers "
+                                     f"{float(a.num_inliers)} vs {float(b.num_inliers)}, valid "
+                                     f"{bool(a.valid)} vs {bool(b.valid)}")
+            out[f"N={n} {name}"] = {"max_abs_err": err, "num_inliers": float(a.num_inliers),
+                                    "valid": bool(a.valid), "bit_equal": bit_equal_share(a.pose, b.pose)}
+            worst = max(worst, err)
+    return out, worst
+
+
 def config2():
     """The RANSAC settings of config 2, through the port's loader."""
     cfg = load_yaml_config(_ROOT / "configs" / "config2_ransac_pnp_pair.yaml").ransac
@@ -1017,6 +1144,7 @@ def phase_kernels():
 
     # Main-path shapes.
     idx, p, q, T = hypotheses(12, K, N)
+    mom = minimal_moments(idx, p, q)
     feat, pn = rs._quad_features(T, p, q)
     top = max(16, K // 1024)
     T_top = T[:top].contiguous()
@@ -1030,6 +1158,13 @@ def phase_kernels():
     err_exact_all = check_exact(T, p, q)
     checks.append({"shape": f"K={K} N={N}", **err, "score_poses_3d3d[all K]": err_exact_all,
                    "best_pose_3d3d winner, tensor-core vs CUDA-core K2": check_quad_winner(T, p, q)})
+    horn_checks = check_horn_hypotheses()
+    err["horn_hypotheses"] = 0.0  # bit for bit
+    refit_checks, err["horn_refit_3d3d"] = check_horn_refit()
+    checks.append({"horn_hypotheses": horn_checks, "horn_refit_3d3d": refit_checks})
+    # The refit starts from the estimator's winner, as in an estimate.
+    _, _, T_start = rs.best_pose_3d3d(T, p, q, TAU, return_pose=True)
+    zero = torch.zeros((), device=DEV)
 
     tau2 = TAU * TAU
     f32 = PEAK_F32_FLOPS
@@ -1085,6 +1220,36 @@ def phase_kernels():
             "library_ms": None,
             "bytes": 4 * (12 * top + 6 * N + 2 * top),
             "op_seconds": 23 * top * N / f32,
+        },
+        {
+            "name": "horn_hypotheses",
+            "source": "rgbd_pose_estimation_tpu_torch/ops/csrc/horn.cu",
+            "replaces": None,  # jnp code that XLA fuses: solvers/absolute_orientation.py
+            "shape": f"K={K}, iters=4",
+            "ms": time_ms(lambda: horn_from_moments(mom, 4)),
+            "device_ms_alone": device_ms_alone("horn_hypotheses", lambda: horn_from_moments(mom, 4)),
+            # The floor of its launch: as many blocks that do nothing.
+            "empty_kernel_device_ms": device_ms_alone(
+                "empty_kernel", lambda: ceilings.empty_kernel(-(-K // HORN_THREADS))),
+            "plain_ms": time_ms(lambda: horn_from_moments_reference(mom, 4), reps=10, inner=1),
+            "library_ms": None,
+            "bytes": 4 * (16 * K + 16 * K),
+            "op_seconds": horn_ops(4) * K / f32,
+        },
+        {
+            "name": "horn_refit_3d3d",
+            "source": "rgbd_pose_estimation_tpu_torch/ops/csrc/horn.cu",
+            "replaces": None,  # the refit scan of ransac/engine.py::estimate_pose_3d3d
+            "shape": f"N={N}, rounds={CFG.refit_rounds}",
+            "ms": time_ms(lambda: _refit_3d3d(T_start, zero, p[:N], q[:N], CFG, K)),
+            "device_ms_alone": device_ms_alone(
+                "horn_refit_3d3d", lambda: _refit_3d3d(T_start, zero, p[:N], q[:N], CFG, K)),
+            "plain_ms": time_ms(
+                lambda: _refit_3d3d_reference(T_start, zero, p[:N], q[:N], CFG, K), reps=10, inner=1),
+            "library_ms": None,
+            # p and q once, the start pose, the pose, mask, count and validity.
+            "bytes": 24 * N + 64 + 64 + N + 4 + 1,
+            "op_seconds": refit_ops(N, CFG.refit_rounds) / f32,
         },
     ]
     icp_checks, icp_record, err["icp_jtj_jtr"], icp_by_size = kernel_icp_jtj()
@@ -1150,7 +1315,8 @@ def pose_error(res, T_gt):
     return err
 
 
-ESTIMATE_KERNELS = ("minimal_moments", "score_poses_3d3d_quad_fused", "score_poses_3d3d")
+ESTIMATE_KERNELS = ("minimal_moments", "horn_hypotheses", "score_poses_3d3d_quad_fused",
+                    "score_poses_3d3d", "horn_refit_3d3d")
 
 
 def phase_estimate():
@@ -1298,7 +1464,7 @@ def phase_estimate_2d3d():
         raise AssertionError(f"point+normal estimate: pose error {err_n} >= {NORMALS_TOL}")
     expect_launches(
         _build.launch_counts(),
-        {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1},
+        {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1, "horn_refit_3d3d": 1},
         "point+normal estimate",
     )
 
@@ -1558,6 +1724,8 @@ def phase_odometry():
 # Substring of each hand-written kernel's name in a profiler trace.
 DEVICE_NAMES = {
     "minimal_moments": ("minimal_moments_kernel",),
+    "horn_hypotheses": ("horn_hypotheses_kernel",),
+    "horn_refit_3d3d": ("horn_refit_3d3d_kernel",),
     "score_poses_3d3d_quad_fused": ("quad_bf16_mma_kernel",),
     "quad_fused_cuda_cores": ("quad_score_kernel",),
     "score_poses_3d3d": ("Residual3D3D",),
@@ -1642,16 +1810,17 @@ def phase_stages(p, q, records, track_ms):
     idx = sample_minimal_sets(g, N, K, M)
     mom = minimal_moments(idx, p, q)
     T = horn_from_moments(mom, iters=4)
-    w = (torch.rand(N, generator=g, device="cuda") < 0.6).float()
+    _, _, T_start = rs.best_pose_3d3d(T, p, q, TAU, return_pose=True)
+    zero = torch.zeros((), device=DEV)
     stages = {
         "sample_minimal_sets": lambda: sample_minimal_sets(g, N, K, M),
         "minimal_moments (K1)": lambda: minimal_moments(idx, p, q),
-        "horn_from_moments iters=4": lambda: horn_from_moments(mom, iters=4),
+        "horn_from_moments iters=4 (horn_hypotheses_kernel)": lambda: horn_from_moments(mom, iters=4),
         "best_pose_3d3d (features, K2, finalists, K3)": lambda: rs.best_pose_3d3d(
             T, p, q, TAU, return_pose=True
         ),
-        "refit round (residuals + horn_quaternion iters=12)": lambda: horn_quaternion(
-            p, q, weights=w
+        "refit, 2 rounds (horn_refit_3d3d_kernel)": lambda: _refit_3d3d(
+            T_start, zero, p, q, CFG, K
         ),
     }
     out = {name: time_ms(fn, reps=20, inner=1, warmup=2) for name, fn in stages.items()}
@@ -1775,13 +1944,14 @@ DESC_BITS_AGREE = 0.999
 
 def frame_pair_modes():
     """name → (RansacConfig, mode, kernel launches a pair). Config 1 builds
-    its hypotheses with the port's kabsch, so no K1."""
+    its hypotheses with the port's kabsch, so no K1 and no Horn hypotheses."""
     cfg1 = load_yaml_config(_ROOT / "configs" / "config1_synthetic_ao_pair.yaml").ransac
     cfg2 = load_yaml_config(_ROOT / "configs" / "config2_ransac_pnp_pair.yaml").ransac
-    ranking = {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1}
+    ranking = {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1, "horn_refit_3d3d": 1}
     return {
         "config1_3d3d_kabsch": (cfg1, "3d3d", ranking),
-        "default_3d3d_horn": (RansacConfig(), "3d3d", {"minimal_moments": 1, **ranking}),
+        "default_3d3d_horn": (RansacConfig(), "3d3d",
+                              {"minimal_moments": 1, "horn_hypotheses": 1, **ranking}),
         "config2_2d3d": (cfg2, "2d3d", {"score_poses_2d3d": 1}),
     }
 
@@ -2743,10 +2913,11 @@ def phase_cli(root):
     out = {"decoder": native_loader.decoder_name(), "frames": CLI_FRAMES,
            "width": cam.width, "height": cam.height, "seconds": {"synth": synth_s}}
 
-    # pair: config 1 (3D-3D, kabsch: K2 + K3) and config 2 (2D-3D: K5).
+    # pair: config 1 (3D-3D, kabsch: K2 + K3 + the refit) and config 2 (2D-3D: K5).
     T_ab = gt[1] @ np.linalg.inv(gt[0])
     pairs = {"config1_3d3d": ("config1_synthetic_ao_pair.yaml", "3d3d",
-                              {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1}),
+                              {"score_poses_3d3d_quad_fused": 1, "score_poses_3d3d": 1,
+                               "horn_refit_3d3d": 1}),
              "config2_2d3d": ("config2_ransac_pnp_pair.yaml", "2d3d", {"score_poses_2d3d": 1})}
     out["pair"] = {}
     for name, (config, mode, launches) in pairs.items():
@@ -3014,13 +3185,14 @@ def phase_entry():
     """entry.py's flagship step (the counterpart of __graft_entry__.entry():
     estimate_pose_3d3d with RansacConfig(num_hypotheses=1024, threshold=0.05)
     on 512 correspondences, 30% outliers): one call under
-    set_sync_debug_mode("error") launching K1, K2 and K3 once each, its ms by
+    set_sync_debug_mode("error") launching K1, the Horn hypotheses, K2, K3
+    and the refit once each, its ms by
     CUDA events; then the call captured once in a CUDA graph (the sampler's
     generator registered, as tools/roofline.py::timeit_chain captures the
     estimate), replayed, each replay's pose through the same gate. Returns
     the eager call's launches.
 
-    K1, K2 and K3 are also held against their plain versions at the step's
+    K1, the Horn hypotheses, K2 and K3 are also held against their plain versions at the step's
     own shapes: its p and q (N = 512), the 1024 minimal sets a fresh
     sampler draws (the very sets of the eager call) and the hypotheses
     solved from them, and the 16 finalists the fast pass picks. And the
@@ -3041,7 +3213,7 @@ def phase_entry():
     idx = sample_minimal_sets(gen, p.shape[0], k, CONFIG.sample_size, CONFIG.prosac, device=DEV)
     if CONFIG.threshold != TAU or p.shape[0] % 128:
         raise AssertionError(f"entry: threshold {CONFIG.threshold}, N = {p.shape[0]} unpadded")
-    T = horn_from_moments(minimal_moments(idx, p, q), iters=4)
+    T = check_hypotheses_bits(minimal_moments(idx, p, q), 4, "entry")
     feat, pn = rs._quad_features(T, p, q)
     top = max(16, k // 1024)
     fast = torch.nan_to_num(rs._quad_scores(feat, pn, TAU), nan=float("inf"))
@@ -3049,6 +3221,7 @@ def phase_entry():
     kernel_checks = {
         "shape": f"K={k} N={p.shape[0]}, {top} finalists",
         "minimal_moments": check_moments(idx, p, q),
+        "horn_hypotheses": "bit-equal",
         "score_poses_3d3d_quad_fused": check_quad(T, p, q, needs_nan_pose=False),
         "score_poses_3d3d": check_exact(finalists.contiguous(), p, q),
         "best_pose_3d3d winner, tensor-core vs CUDA-core K2": check_quad_winner(T, p, q),
@@ -3623,7 +3796,7 @@ def main():
     entry_launches = phase_entry()
 
     # Launches on each kernel's own main path, each counted from zero: the
-    # 3D-3D estimates for K1-K3, the 2D-3D estimates for K5, the synchronous
+    # 3D-3D estimates for K1-K3 and the Horn kernels, the 2D-3D estimates for K5, the synchronous
     # odometry run for the fused ICP step, and the photometric and bilinear
     # tracks for K4, the steps that still make their rows in PyTorch.
     paths = {"score_poses_2d3d": counts_2d3d, "icp_assoc_jtj_jtr": odometry_counts,
@@ -3639,7 +3812,7 @@ def main():
             rec["launches_slam_command"] = slam_command_launches
         if rec["name"] == "score_poses_3d3d":  # eval/scaling.py's step mode
             rec["launches_scaling_step"] = scaling_k3
-        if rec["name"] in entry_launches:  # K1-K3: one call of entry.py's step
+        if rec["name"] in entry_launches:  # K1-K3, Horn: one call of entry.py's step
             rec["launches_entry"] = entry_launches[rec["name"]]
         if rec["name"] in reassoc_launches:  # the ICP experiments' accuracy loops
             rec["launches_reassoc_exp"] = reassoc_launches[rec["name"]]

@@ -44,6 +44,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # idx, p, q, out, K, m, N
     "minimal_moments": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # mom, out, K, iters
+    "horn_hypotheses": [_P, _P, _I, _I, _P],
+    # p, q, T0, pose, mask, num, valid, N, rounds, tau2, min_inliers
+    "horn_refit_3d3d": [_P] * 7 + [_I, _I, _F, _I, _P],
     # feat, pn, out, K, N, tau2
     "score_poses_3d3d_quad_fused": [_P, _P, _P, _I, _I, _F, _P],
     # poses, p, q, msac, count, K, N, tau2

@@ -37,6 +37,7 @@ import typing
 
 import torch
 
+from rgbd_pose_estimation_tpu_torch.ops.horn import horn_refit_3d3d
 from rgbd_pose_estimation_tpu_torch.ops.moments import minimal_moments
 from rgbd_pose_estimation_tpu_torch.ops.ransac_score import (
     best_pose_3d3d,
@@ -161,7 +162,27 @@ def _estimate_from_samples(idx, p, q, cfg: RansacConfig) -> RansacResult:
 
 def _refit_3d3d(T_best, best_score, p, q, cfg: RansacConfig, num_hypotheses: int):
     """The end shared by the 3D-3D estimators: ``cfg.refit_rounds`` weighted
-    Horn refits on the hard inliers of the current model, then the result."""
+    Horn refits on the hard inliers of the current model, then the result.
+    For CUDA tensors the whole refit is one launch of
+    ``horn_refit_3d3d_kernel`` (``ops/horn.py``); for CPU tensors the plain
+    version, :func:`_refit_3d3d_reference`, runs."""
+    if not p.is_cuda:
+        return _refit_3d3d_reference(T_best, best_score, p, q, cfg, num_hypotheses)
+    pose, inliers, num, valid = horn_refit_3d3d(
+        T_best, p, q, cfg.threshold**2, cfg.refit_rounds, cfg.min_inliers
+    )
+    return RansacResult(
+        pose=pose,
+        inlier_mask=inliers,
+        num_inliers=num,
+        score=best_score,
+        valid=valid,
+        num_hypotheses=num_hypotheses,
+    )
+
+
+def _refit_3d3d_reference(T_best, best_score, p, q, cfg: RansacConfig, num_hypotheses: int):
+    """Plain PyTorch version of :func:`_refit_3d3d`, on any device."""
     tau2 = cfg.threshold**2
 
     def residuals(T_cur):

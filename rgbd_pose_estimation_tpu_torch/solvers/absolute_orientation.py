@@ -22,8 +22,11 @@ tensor values in Python, so none of them synchronises with the device.
 The Horn path keeps the component-wise (structure-of-arrays) arithmetic of
 the JAX package line for line. That is what makes parity with it to 1e-5
 possible; in eager PyTorch each of those lines is one small launch on the
-card (a few hundred per solve), which is recorded in ``PERF.md`` and is for
-a later change (CUDA graphs or one fused kernel) to remove.
+card (a few hundred per solve). The RANSAC engine's two Horn solves do not
+run it on CUDA tensors: :func:`horn_from_moments` launches one kernel
+(``ops/horn.py``) that runs the same arithmetic one hypothesis a thread,
+and the engine's refit launches its twin. :func:`horn_quaternion` and
+:func:`horn_rotation_directions` (P3P, the point+normal solver) stay eager.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from rgbd_pose_estimation_tpu_torch.core.lie import rt_to_matrix
+from rgbd_pose_estimation_tpu_torch.ops import horn as horn_kernels
 
 
 def _weighted_stats(p, q, weights):
@@ -182,7 +186,19 @@ def horn_from_moments(mom: torch.Tensor, iters: int = 12) -> torch.Tensor:
 
     which feeds the same component-of-arrays eigen path as
     :func:`horn_quaternion`. This is the RANSAC engine's hypothesis path.
+
+    For a CUDA tensor it is one launch of ``horn_hypotheses_kernel``
+    (``ops/horn.py``, one hypothesis a thread); for a CPU tensor the plain
+    version, :func:`horn_from_moments_reference`, runs.
     """
+    if mom.is_cuda:
+        return horn_kernels.horn_hypotheses(mom, iters)
+    return horn_from_moments_reference(mom, iters)
+
+
+def horn_from_moments_reference(mom: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """Plain PyTorch version of :func:`horn_from_moments`: the same
+    arithmetic, component-wise, on any device."""
     n = torch.clamp(mom[15], min=1e-12)
     inv = 1.0 / n
     cpx, cpy, cpz = mom[0] * inv, mom[1] * inv, mom[2] * inv

@@ -78,6 +78,61 @@ def test_estimate_matches_reference_from_same_minimal_sets(seed):
     assert out["score"] >= 56 * 0.05**2 and np.isfinite(out["score"])
 
 
+@pytest.mark.parametrize(
+    "threshold,refit_rounds",
+    [(1e-4, 2), (0.05, 0)],
+    ids=["fewer-than-3-inliers", "refit-rounds-0"],
+)
+def test_estimate_matches_reference_where_the_refit_keeps_the_pose(threshold, refit_rounds):
+    """The refit's two ways of leaving the winner as it is: fewer than 3
+    hard inliers (τ = 1e-4 against noise 0.003: the winner has one inlier,
+    so both rounds keep the pose and the estimate is invalid), and
+    no refit round at all. K = 16 sets that JAX draws: every one is a
+    finalist and re-scored exactly on both sides, so both pick the same
+    set. Pose within 1e-4: that set is solved by Horn at 4 iterations from
+    its moments in the port and at 12 from the gathered points in JAX
+    (1.9e-6 to 3.0e-6 apart on such sets). Masks equal, counts equal."""
+    p, q, T_gt, _ = _problem(7)
+    jcfg = JaxRansacConfig(num_hypotheses=16, threshold=threshold,
+                           refit_rounds=refit_rounds, solver="horn")
+    key = jax.random.key(3)
+    ref = result_to_numpy(jengine.estimate_pose_3d3d(key, jnp.asarray(p), jnp.asarray(q), jcfg))
+    idx = np.asarray(jax_sample(key, 200, 16, 3, jcfg.prosac))
+
+    before = _build.launch_counts()
+    res = tengine._estimate_from_samples(*to_torch((idx, p, q), "cpu"), config_from_reference(jcfg))
+    assert _build.launch_counts() == before  # CPU tensors: plain versions only
+    out = result_to_numpy(res)
+
+    np.testing.assert_allclose(out["pose"], ref["pose"], atol=1e-4)
+    assert (out["inlier_mask"] == ref["inlier_mask"]).all()
+    assert float(out["num_inliers"]) == float(ref["num_inliers"])
+    assert bool(out["valid"]) == bool(ref["valid"])
+    if threshold < 1e-3:
+        assert float(out["num_inliers"]) < 3 and not bool(out["valid"])
+    else:
+        assert bool(out["valid"]) and np.abs(out["pose"] - T_gt).max() < 0.05
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 2])
+def test_refit_takes_the_plain_route_on_cpu(rounds):
+    """``_refit_3d3d`` on CPU tensors is its plain version: no kernel is
+    launched, and the result is the plain version's to the bit."""
+    p, q, T_gt, _ = _problem(8)
+    p, q, T0 = to_torch((p, q, T_gt), "cpu")
+    T0 = T0.clone()
+    T0[:3, 3] += 0.01
+    cfg = tengine.RansacConfig(threshold=0.05, refit_rounds=rounds)
+    score = torch.zeros(())
+    before = _build.launch_counts()
+    res = tengine._refit_3d3d(T0, score, p, q, cfg, 1)
+    assert _build.launch_counts() == before
+    ref = tengine._refit_3d3d_reference(T0, score, p, q, cfg, 1)
+    assert torch.equal(res.pose, ref.pose) and torch.equal(res.inlier_mask, ref.inlier_mask)
+    assert float(res.num_inliers) == float(ref.num_inliers) and bool(res.valid) == bool(ref.valid)
+    assert np.abs(res.pose.numpy() - T_gt).max() < (0.05 if rounds else 0.02)
+
+
 @pytest.mark.parametrize("solver", ["horn", "kabsch"])
 def test_estimate_with_own_sampler(solver):
     p, q, T_gt, inl = _problem(2)

@@ -67,12 +67,14 @@ def test_imports_without_jax_or_triton():
 
 
 # Modules of the port with no counterpart in the JAX repository: the
-# kernels' build and bindings, the stdlib PNG codec, the conversions from the
+# kernels' build and bindings (ops/horn.py launches the Horn kernels, whose
+# work the JAX package leaves to XLA), the stdlib PNG codec, the conversions from the
 # reference's types, the port's own measurement tools, the dry run (the
 # reference's is in __graft_entry__.py, whose counterpart entry.py re-exports
 # it) and the ranks a command starts for itself.
 _PORT_ONLY = {
-    "data/png.py", "ops/_build.py", "ops/ceilings.py", "ops/msac_variants.py", "parallel/dryrun.py",
+    "data/png.py", "ops/_build.py", "ops/ceilings.py", "ops/horn.py", "ops/msac_variants.py",
+    "parallel/dryrun.py",
     "parallel/spawn.py", "tools/__init__.py", "tools/collective_cost.py", "tools/k4_tracks.py",
     "utils/convert.py",
 }

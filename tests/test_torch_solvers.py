@@ -14,6 +14,7 @@ import torch
 
 from rgbd_pose_estimation_tpu.core.lie import se3_exp as jax_se3_exp
 from rgbd_pose_estimation_tpu.solvers import absolute_orientation as jao
+from rgbd_pose_estimation_tpu_torch.ops import _build
 from rgbd_pose_estimation_tpu_torch.solvers import absolute_orientation as tao
 from rgbd_pose_estimation_tpu_torch.utils.convert import to_torch
 
@@ -80,6 +81,29 @@ def test_horn_from_moments(iters):
     good = sv[:, 1] > 0.2 * sv[:, 0]
     assert good.sum() > 150
     np.testing.assert_allclose(out.numpy()[good], ref[good], atol=ATOL, rtol=0)
+
+
+def test_horn_from_moments_takes_the_plain_route_on_cpu():
+    """On CPU tensors no kernel is launched and the result is the plain
+    version's to the bit; NaN moments (a degenerate or poisoned sample) give
+    a NaN pose in the same hypotheses as the JAX package, and the other
+    hypotheses still agree with it to 1e-5."""
+    p, q, _ = _problem(9, batch=(64,), n=3, noise=0.003)
+    mom = _moments(p, q)
+    mom[:, 5] = np.nan
+    mom[7, 9] = np.nan
+    ref = np.asarray(jao.horn_from_moments(jnp.asarray(mom), iters=4))
+    before = _build.launch_counts()
+    out = tao.horn_from_moments(to_torch(mom, "cpu"), iters=4)
+    assert _build.launch_counts() == before
+    plain = tao.horn_from_moments_reference(to_torch(mom, "cpu"), iters=4)
+    assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+    out = out.numpy()
+    assert np.array_equal(np.isnan(out), np.isnan(ref))
+    assert np.isnan(out[[5, 9], :3]).all() and not np.isnan(np.delete(out, [5, 9], 0)).any()
+    sv = np.linalg.svd(p - p.mean(1, keepdims=True), compute_uv=False)
+    good = (sv[:, 1] > 0.2 * sv[:, 0]) & ~np.isin(np.arange(64), [5, 9])
+    np.testing.assert_allclose(out[good], ref[good], atol=ATOL, rtol=0)
 
 
 def test_horn_rotation_directions():
